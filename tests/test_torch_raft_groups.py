@@ -1,0 +1,139 @@
+"""The torch ``RaftGroups`` against the JAX reference's ``RaftGroups``.
+
+One request sequence — single submits and batches of ``OP_LONG_ADD`` —
+goes to both engines under one partition schedule that isolates each
+group's leader for a stretch of rounds, so ops accepted by a deposed
+leader are lost and re-submitted. With the reference's timer draws fed
+to the port, both engines must agree on every state leaf after every
+round; with the port's own generator they must still agree on every
+result. Exactly-once holds: each group's results are the prefix sums of
+its deltas in submission order, and its final value their total.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+
+from copycat_tpu.models import RaftGroups as JaxRaftGroups  # noqa: E402
+from copycat_tpu.ops import apply as jap  # noqa: E402
+from copycat_tpu.ops.consensus import Config as JaxConfig  # noqa: E402
+
+from copycat_tpu_torch import convert  # noqa: E402
+from copycat_tpu_torch.models import RaftGroups  # noqa: E402
+
+G, P, L, S = 16, 3, 16, 4
+JCFG = JaxConfig(resource=jap.ResourceConfig.counters_only())
+
+
+class ReferenceDrawnGroups(RaftGroups):
+    """The port's engine drawing its election timers exactly as the
+    reference's ``RaftGroups`` does from the same seed."""
+
+    def __init__(self, seed=0):
+        super().__init__(G, P, log_slots=L, submit_slots=S,
+                         config=convert.config_to_torch(JCFG), seed=seed,
+                         device="cpu")
+        self._key, init_key = jax.random.split(jax.random.PRNGKey(seed))
+        self.state = self.state._replace(timer=self._randint(init_key))
+
+    def _randint(self, key):
+        cfg = self.config
+        return torch.tensor(np.asarray(jax.random.randint(
+            key, (G, P), cfg.timer_min, cfg.timer_max)))
+
+    def _draw_timers(self):
+        self._key, key = jax.random.split(self._key)
+        key_t, key_c = jax.random.split(key)
+        return self._randint(key_t), self._randint(key_c)
+
+
+def _isolate(victims):
+    hit = np.arange(P)[None, :] == victims[:, None]
+    return ~(hit[:, :, None] | hit[:, None, :]) | (victims < 0)[:, None, None]
+
+
+def _drive(engines, compare_state):
+    """Submit the same sequence to every engine, step them in lockstep
+    under the partition schedule, and return each engine's results plus
+    the (group, delta, tag) log of what was submitted."""
+    rng = np.random.default_rng(3)
+    for rg in engines:
+        rg.wait_for_leaders()
+    submitted = []
+    for r in range(60):
+        if r < 30:
+            if r % 2:
+                g = rng.integers(0, G, 6)
+                d = rng.integers(1, 9, 6)
+                tags = [rg.submit_batch(g, jap.OP_LONG_ADD, d)
+                        for rg in engines]
+            else:
+                g = rng.integers(0, G, 3)
+                d = rng.integers(1, 9, 3)
+                tags = [[rg.submit(int(gi), jap.OP_LONG_ADD, int(di))
+                         for gi, di in zip(g, d)] for rg in engines]
+            for t in tags[1:]:
+                assert list(t) == list(tags[0])
+            submitted += list(zip(g.tolist(), d.tolist(), list(tags[0])))
+        if r in (5, 20):   # isolate every group's current leader
+            mask = _isolate(np.asarray([engines[0].leader(g)
+                                        for g in range(G)]))
+        elif r in (13, 28):
+            mask = np.ones((G, P, P), bool)
+        else:
+            mask = None
+        if mask is not None:
+            engines[0].deliver = jax.numpy.asarray(mask)
+            for rg in engines[1:]:
+                rg.deliver = torch.from_numpy(mask)
+        for rg in engines:
+            rg.step_round()
+        if compare_state:
+            want = convert.flat_leaves(engines[0].state)
+            for rg in engines[1:]:
+                got = convert.flat_leaves(rg.state)
+                for name, w in want.items():
+                    np.testing.assert_array_equal(
+                        got[name], w, err_msg=f"{name} round {r}")
+    tags = [t for _, _, t in submitted]
+    for rg in engines:
+        rg.run_until(tags, max_rounds=300)
+    return submitted
+
+
+def _check_exactly_once(rg, submitted):
+    totals = {}
+    for g, d, tag in submitted:
+        totals[g] = totals.get(g, 0) + d
+        assert rg.results[tag] == totals[g], (g, tag)
+    for g in range(G):
+        assert (rg.state.resources.value[g] == totals.get(g, 0)).all()
+
+
+def test_same_draws_give_the_same_state_every_round():
+    ref = JaxRaftGroups(G, P, log_slots=L, submit_slots=S, config=JCFG)
+    port = ReferenceDrawnGroups()
+    submitted = _drive([ref, port], compare_state=True)
+    assert port.results == ref.results
+    assert port.counters["ops_resubmitted"] > 0, "no op was lost and retried"
+    _check_exactly_once(port, submitted)
+    _check_exactly_once(ref, submitted)
+
+
+def test_own_generator_gives_the_same_results():
+    ref = JaxRaftGroups(G, P, log_slots=L, submit_slots=S, config=JCFG)
+    port = RaftGroups(G, P, log_slots=L, submit_slots=S, seed=5,
+                      device="cpu")
+    submitted = _drive([ref, port], compare_state=False)
+    assert port.results == ref.results
+    _check_exactly_once(port, submitted)
+
+
+def test_membership_opcodes_are_refused():
+    rg = RaftGroups(2, 3, device="cpu")
+    with pytest.raises(ValueError, match="dynamic_membership"):
+        rg.submit(0, jap.OP_CFG_ADD, 1)
+    with pytest.raises(ValueError, match="dynamic_membership"):
+        rg.submit_batch([0], jap.OP_CFG_REMOVE, 1)
