@@ -5,24 +5,34 @@
 Phases, each of which raises (and so exits non-zero) on failure:
 
 1. card and build — the card's name and power limit, then the kernel
-   library built from ``copycat_tpu_torch/csrc/kth_largest.cu``;
-2. kernel — the quorum-tally kernel against its plain torch version on
-   the card, bit for bit, over G ∈ {10,000, 100,000, 1,001}, P ∈ {3, 5, 7},
-   k ∈ {P//2+1, 1, P}, with duplicate rows and INT_MIN lanes; plus the
-   floor-mod and first-index argmax the step relies on;
-3. path — the consensus step on the card (kernel) and on the CPU (plain
-   version) from one state and one set of timer draws, G=1,000, P=3,
-   L=64, S=16, 50 rounds under random partitions: every state and output
-   leaf equal every round;
+   libraries built from every ``copycat_tpu_torch/csrc/*.cu`` source, one
+   ``nvcc`` each, all at once;
+2. kernel — each kernel against its plain torch version on the card, bit
+   for bit: the quorum tally ``kth_largest`` over G ∈ {10,000, 100,000,
+   1,001}, P ∈ {3, 5, 7}, k ∈ {P//2+1, 1, P}, with duplicate rows and
+   INT_MIN lanes; the fused phase kernels ``admit_submits`` and
+   ``ack_commit`` over the same G and P on ``copycat_tpu_torch/cases.py``'s
+   inputs (leaderless groups, commit candidate 0, candidates below the
+   ring's window, stale leaders, duplicate matchIndex values, submits all
+   refused by backpressure); plus the floor-mod and first-index argmax the
+   step relies on;
+3. path — the consensus step on the card (fused kernels) and on the CPU
+   (plain versions) from one state and one set of timer draws, G=1,000,
+   P=3, L=64, S=16, 50 rounds under random partitions: every state and
+   output leaf equal every round, and one launch of each fused kernel per
+   card round;
 4. serve — the main path: ``RaftGroups(10_000, 3, log_slots=64,
    submit_slots=16)`` elects leaders and answers a few hundred
    ``OP_LONG_ADD`` requests, each checked against its running sum; the
-   kernel's launch count, zeroed just before, must rise;
+   fused kernels' launch counts, zeroed just before, must rise (the
+   standalone tally is off the main path);
 5. bench — the counter bench at full size (G=10,000 × P=3 × L=64 × S=16),
-   and the kernel's time per call at G=10,000, P=3 beside its plain
-   version, a library call computing the same function, and its bound;
-   then a short ``torch.profiler`` window of the same step: kernel time,
-   the device's idle share and launches per round.
+   with one launch of each fused kernel per round; each kernel's time per
+   call beside its plain version, a library call computing the same
+   function where there is one, and its bound — the fused kernels on the
+   inputs the bench's step gives them; then a short ``torch.profiler``
+   window of the same step: kernel time, the device's idle share and
+   launches per round.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a card it exits non-zero and
@@ -99,16 +109,47 @@ def edge_rows(rng, G: int, P: int) -> np.ndarray:
     return x
 
 
+def on_card(case: dict, dev) -> dict:
+    return {k: torch.from_numpy(v).to(dev) for k, v in case.items()}
+
+
+def widen_ring(ring: torch.Tensor) -> torch.Tensor:
+    """The ring as the step hands it over: a column slice of a [G, L+1]
+    tensor, rows L+1 elements apart."""
+    wide = torch.zeros((ring.shape[0], ring.shape[1] + 1), dtype=ring.dtype,
+                       device=ring.device)
+    wide[:, :-1] = ring
+    return wide[:, :-1]
+
+
+def max_err(got, want, what: str) -> int:
+    """Largest |got - want| over every output of a fused kernel; raises
+    unless it is 0 with equal dtypes and shapes."""
+    worst = 0
+    for name, w in want._asdict().items():
+        g = getattr(got, name)
+        if g.dtype != w.dtype or g.shape != w.shape:
+            raise AssertionError(f"{what}: {name} is {g.dtype} "
+                                 f"{tuple(g.shape)}, plain {w.dtype} "
+                                 f"{tuple(w.shape)}")
+        err = int((g.long() - w.long()).abs().max())
+        if err:
+            raise AssertionError(f"{what}: {name} differs from the plain "
+                                 f"version (max |err| {err})")
+        worst = max(worst, err)
+    return worst
+
+
 def phase_build(kernels) -> float:
     t0 = time.perf_counter()
-    kernels.load_library()
+    kernels.load_libraries()
     return time.perf_counter() - t0
 
 
-def phase_kernel(kernels, dev) -> int:
+def phase_kernel(kernels, cases, dev) -> dict:
     rng = np.random.default_rng(0)
-    worst = 0
-    cases = 0
+    worst = {"kth_largest": 0, "admit_submits": 0, "ack_commit": 0}
+    n = dict.fromkeys(worst, 0)
     for G in (10_000, 100_000, 1_001):
         for P in (3, 5, 7):
             x = torch.from_numpy(edge_rows(rng, G, P)).to(dev)
@@ -120,10 +161,29 @@ def phase_kernel(kernels, dev) -> int:
                 if err or got.dtype != torch.int32:
                     raise AssertionError(
                         f"kernel != plain at G={G} P={P} k={k}: err {err}")
-                worst = max(worst, err)
-                cases += 1
-    say(f"kernel: {cases} cases equal to the plain version bit for bit "
-        f"(max |err| {worst})")
+                worst["kth_largest"] = max(worst["kth_largest"], err)
+                n["kth_largest"] += 1
+            quorum = P // 2 + 1
+            S, L = (5, 16) if G == 1_001 else (16, 64)
+            where = f"G={G} P={P} S={S} L={L}"
+            a = on_card(cases.admit_case(rng, G, P, S, L), dev)
+            got = kernels.admit_submits_cuda(**a, quorum=quorum, L=L)
+            want = kernels.admit_submits_plain(**a, quorum=quorum, L=L)
+            torch.cuda.synchronize()
+            worst["admit_submits"] = max(worst["admit_submits"], max_err(
+                got, want, f"admit_submits at {where}"))
+            c = on_card(cases.ack_case(rng, G, P, L), dev)
+            c["l_log_term"] = widen_ring(c["l_log_term"])
+            got = kernels.ack_commit_cuda(**c, quorum=quorum)
+            want = kernels.ack_commit_plain(**c, quorum=quorum)
+            torch.cuda.synchronize()
+            worst["ack_commit"] = max(worst["ack_commit"], max_err(
+                got, want, f"ack_commit at {where}"))
+            n["admit_submits"] += 1
+            n["ack_commit"] += 1
+    for name, cnt in n.items():
+        say(f"kernel: {name}: {cnt} cases equal to the plain version bit "
+            f"for bit (max |err| {worst[name]})")
     m = torch.tensor([-5, -1, 3, 4], dtype=torch.int32, device=dev) % 4
     if m.tolist() != [3, 3, 3, 0]:
         raise AssertionError(f"int32 % is not floor-mod on the card: {m}")
@@ -135,7 +195,16 @@ def phase_kernel(kernels, dev) -> int:
     return worst
 
 
-def phase_path(cons, convert, ap, dev) -> None:
+def zero_counts(kernels_by_name: dict) -> None:
+    for k in kernels_by_name.values():
+        k.launches = 0
+
+
+def counts(kernels_by_name: dict) -> dict:
+    return {name: k.launches for name, k in kernels_by_name.items()}
+
+
+def phase_path(cons, convert, ap, ks: dict, dev) -> None:
     G, P, L, S, rounds = 1_000, 3, 64, 16, 50
     cfg = cons.Config(append_window=S, applies_per_round=S,
                       resource=ap.ResourceConfig.counters_only())
@@ -153,6 +222,7 @@ def phase_path(cons, convert, ap, dev) -> None:
                    np.int32)
     victims = rng.integers(0, P, G)
     installs = 0
+    zero_counts(ks)
     for r in range(rounds):
         sub = dict(opcode=rng.choice(ops, (G, S)).astype(np.int32),
                    a=rng.integers(-3, 4, (G, S)).astype(np.int32),
@@ -187,13 +257,19 @@ def phase_path(cons, convert, ap, dev) -> None:
             cpu = cons.install_snapshots(cpu, out_c.stale, out_c.leader, cfg)
             gpu = cons.install_snapshots(gpu, out_g.stale, out_g.leader, cfg)
             installs += 1
+    launched = counts(ks)
+    if launched != {"kth_largest": 0, "admit_submits": rounds,
+                    "ack_commit": rounds}:
+        raise AssertionError(f"path: kernel launches {launched} in "
+                             f"{rounds} card rounds; want one of each "
+                             "fused kernel a round")
     say(f"path: CUDA step == CPU step on every leaf for {rounds} rounds "
         f"(G={G} P={P} L={L} S={S}, random partitions, {installs} snapshot "
-        "installs)")
+        f"installs); card rounds launched {launched}")
 
 
-def phase_serve(RaftGroups, ap, kernels) -> int:
-    kernels.kth_largest.launches = 0
+def phase_serve(RaftGroups, ap, ks: dict) -> dict:
+    zero_counts(ks)
     t0 = time.perf_counter()
     rg = RaftGroups(10_000, 3, log_slots=64, submit_slots=16)
     rg.wait_for_leaders()
@@ -206,7 +282,7 @@ def phase_serve(RaftGroups, ap, kernels) -> int:
     tags += [rg.submit(g, ap.OP_LONG_ADD, d) for g, d in single]
     rg.run_until(tags)
     rg.run(3)   # followers learn the final commit index and apply it
-    launches = kernels.kth_largest.launches
+    launches = counts(ks)
     dt = time.perf_counter() - t0
     totals: dict[int, int] = {}
     order = list(zip(groups.tolist(), deltas.tolist())) + single
@@ -220,54 +296,129 @@ def phase_serve(RaftGroups, ap, kernels) -> int:
         if not (values[g] == total).all():
             raise AssertionError(f"serve: group {g} holds {values[g]}, "
                                  f"want {total}")
-    if launches == 0:
-        raise AssertionError("serve: the quorum-tally kernel never launched")
+    for name in ("admit_submits", "ack_commit"):
+        if launches[name] == 0:
+            raise AssertionError(f"serve: the {name} kernel never launched")
     say(f"serve: {len(tags)} requests on {len(totals)} of 10000 groups "
-        f"answered correctly in {rg.rounds} rounds ({dt:.1f}s); "
-        f"kth_largest launches {launches}")
+        f"answered correctly in {rg.rounds} rounds ({dt:.1f}s); kernel "
+        f"launches {launches}")
     return launches
 
 
-def phase_bench(bench, kernels, dev, card: str) -> tuple[dict, dict]:
-    kernels.kth_largest.launches = 0
+def bounds(nbytes: int, ops: int) -> dict:
+    """The least time of a call: bytes over the memory rate or integer
+    operations over the 32-bit rate, whichever is larger."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / SCALAR_OPS_PER_S * 1e3
+    return dict(bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def step_inputs(bench, cons, dev) -> dict:
+    """The arguments the bench's step hands each fused kernel, recorded in
+    the third round after every leader is elected."""
+    cfg, gen, state, deliver, submits = bench.counter_setup(device=dev)
+    G, P = state.term.shape
+    seen = {}
+    real = {"admit_submits": cons.admit_submits,
+            "ack_commit": cons.ack_commit}
+
+    def recorder(name):
+        def call(*args, **kw):
+            seen[name] = (args, kw)
+            return real[name](*args, **kw)
+        return call
+
+    cons.admit_submits = recorder("admit_submits")
+    cons.ack_commit = recorder("ack_commit")
+    try:
+        for _ in range(3):
+            state, _ = cons.step(state, submits, deliver,
+                                 cons.draw_timers(G, P, cfg, gen),
+                                 cons.draw_timers(G, P, cfg, gen), cfg)
+    finally:
+        cons.admit_submits = real["admit_submits"]
+        cons.ack_commit = real["ack_commit"]
+    return seen
+
+
+def phase_bench(bench, cons, kernels, dev, card: str) -> tuple[dict, dict]:
+    zero_counts(bench.KERNELS)
     result = bench.run_throughput()
-    launches = kernels.kth_largest.launches
-    if launches == 0:
-        raise AssertionError("bench: the quorum-tally kernel never launched")
+    per_round = result["launches_per_round"]
+    if per_round != {"kth_largest": 0, "admit_submits": 1, "ack_commit": 1}:
+        raise AssertionError(f"bench: kernel launches per round {per_round};"
+                             " want one of each fused kernel")
     say(f"bench: {result['value']:.1f} committed ops/s, "
         f"{result['ms_per_round']:.4f} ms/round, p50 "
         f"{result['p50_commit_latency_rounds']} rounds "
         f"({result['p50_commit_latency_ms']:.4f} ms), p99 "
         f"{result['p99_commit_latency_rounds']} rounds "
         f"({result['p99_commit_latency_ms']:.4f} ms) at G=10000 P=3 L=64 "
-        f"S=16 on {card}; kth_largest launches {launches} "
-        f"({result['kth_launches_per_round']} per timed round)")
+        f"S=16 on {card}; kernel launches per timed round {per_round}")
     say("bench: " + json.dumps(result))
 
+    # kth_largest alone, at the shape of the step's tallies
     G, P, k = 10_000, 3, 2
     rng = np.random.default_rng(3)
     x = torch.from_numpy(rng.integers(0, 1 << 20, (G, P)).astype(np.int32)
                          ).to(dev)
-    fns = {"kernel": lambda: kernels.kth_largest_cuda(x, k),
-           "plain": lambda: kernels.kth_largest_plain(x, k),
-           "library": lambda: torch.topk(x, k, dim=1).values[:, -1]}
-    dev_ms = {name: graph_ms(fn) for name, fn in fns.items()}
-    call_ms = {name: time_ms(fn) for name, fn in fns.items()}
-    bytes_ms = (G * P * 4 + G * 4) / HBM_BYTES_PER_S * 1e3
-    ops_ms = 2 * G * P * P / SCALAR_OPS_PER_S * 1e3
-    timing = dict(ms=dev_ms["kernel"], plain_ms=dev_ms["plain"],
-                  library_ms=dev_ms["library"],
-                  bound_ms=max(bytes_ms, ops_ms),
-                  bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                  call_ms=call_ms["kernel"], plain_call_ms=call_ms["plain"],
-                  library_call_ms=call_ms["library"],
-                  launches_bench=launches)
-    say(f"kernel time at G={G} P={P} k={k} on {card}, device time per call "
-        f"(CUDA graph): kth_largest {dev_ms['kernel']:.6f} ms, plain torch "
-        f"{dev_ms['plain']:.6f} ms, torch.topk {dev_ms['library']:.6f} ms; "
-        f"eager call time: {call_ms['kernel']:.6f} / {call_ms['plain']:.6f}"
-        f" / {call_ms['library']:.6f} ms; bound {timing['bound_ms']:.6f} ms "
-        f"({timing['bound_by']})")
+    fns = {"kth_largest": (
+        lambda: kernels.kth_largest_cuda(x, k),
+        lambda: kernels.kth_largest_plain(x, k),
+        lambda: torch.topk(x, k, dim=1).values[:, -1],
+        bounds(G * P * 4 + G * 4, 2 * G * P * P))}
+
+    # the fused kernels, on the bench step's own inputs
+    seen = step_inputs(bench, cons, dev)
+    a_args, a_kw = seen["admit_submits"]
+    (G, P), S = a_args[0].shape, a_args[3].shape[1]
+    # reads: applied, lead, accept_ok, valid, l_last; writes: accepted,
+    # assigned, slot (int64), l_last. Operations: the rank-select's 2·P²
+    # compares, then about 8 per submit slot.
+    fns["admit_submits"] = (
+        lambda: kernels.admit_submits_cuda(*a_args, **a_kw),
+        lambda: kernels.admit_submits_plain(*a_args, **a_kw),
+        None,
+        bounds(G * (4 * P + 4 + 1 + S + 4) + G * (S + 4 * S + 8 * S + 4),
+               G * (2 * P * P + 8 * S)))
+    c_args, c_kw = seen["ack_commit"]
+    out = kernels.ack_commit_plain(*c_args, **c_kw)
+    (G, P), L = c_kw["recv"].shape, c_kw["l_log_term"].shape[1]
+    l_last, lead = c_kw["l_last"], c_kw["lead"]
+    self_lane = torch.arange(P, device=dev)[None, :] == lead[:, None]
+    cand = kernels.kth_largest_plain(
+        torch.where(self_lane, l_last[:, None], out.l_match), P // 2 + 1)
+    n_live = int(((cand >= 1) & (cand <= l_last) & (cand > l_last - L)).sum())
+    # reads: six bool and six int32 [G,P] lanes, five [G] values, and one
+    # ring term for each group whose candidate lies in the live window;
+    # writes: two int32 [G,P] lanes, two bool and two int32 [G] values.
+    # Operations: 2·P² compares and about 24 per lane.
+    fns["ack_commit"] = (
+        lambda: kernels.ack_commit_cuda(*c_args, **c_kw),
+        lambda: kernels.ack_commit_plain(*c_args, **c_kw),
+        None,
+        bounds(G * (6 * P + 24 * P + 17) + 4 * n_live + G * (8 * P + 10),
+               G * (2 * P * P + 24 * P)))
+    for name, (kern, plain, _, _) in fns.items():
+        if name != "kth_largest":
+            max_err(kern(), plain(), f"{name} on the bench step's inputs")
+
+    timing = {}
+    for name, (kern, plain, library, bound) in fns.items():
+        dev_ms = {"ms": graph_ms(kern), "plain_ms": graph_ms(plain),
+                  "library_ms": graph_ms(library) if library else None}
+        call_ms = {"call_ms": time_ms(kern), "plain_call_ms": time_ms(plain),
+                   "library_call_ms": time_ms(library) if library else None}
+        timing[name] = dict(**dev_ms, **bound, **call_ms,
+                            launches_per_bench_round=per_round[name])
+        say(f"kernel time of {name} at G=10000 P=3 on {card}: device time "
+            f"per call (CUDA graph) {dev_ms['ms']:.6f} ms, plain torch "
+            f"{dev_ms['plain_ms']:.6f} ms, library {dev_ms['library_ms']}; "
+            f"eager call time {call_ms['call_ms']:.6f} ms, plain torch "
+            f"{call_ms['plain_call_ms']:.6f} ms, library "
+            f"{call_ms['library_call_ms']}; bound {bound['bound_ms']:.7f} ms "
+            f"({bound['bound_by']})")
     return result, timing
 
 
@@ -319,7 +470,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card", file=sys.stderr)
         return 1
-    from copycat_tpu_torch import bench, convert
+    from copycat_tpu_torch import bench, cases, convert
     from copycat_tpu_torch.device import card_info
     from copycat_tpu_torch.models import RaftGroups
     from copycat_tpu_torch.ops import apply as ap
@@ -331,21 +482,24 @@ def main() -> int:
     say(card)
     say(f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)}")
-    say(f"build: kernel library built in {phase_build(kernels):.1f}s")
-    max_err = phase_kernel(kernels, dev)
-    phase_path(cons, convert, ap, dev)
-    launches = phase_serve(RaftGroups, ap, kernels)
-    _, timing = phase_bench(bench, kernels, dev, card)
+    say(f"build: kernel libraries built in {phase_build(kernels):.1f}s")
+    errs = phase_kernel(kernels, cases, dev)
+    phase_path(cons, convert, ap, bench.KERNELS, dev)
+    launches = phase_serve(RaftGroups, ap, bench.KERNELS)
+    _, timing = phase_bench(bench, cons, kernels, dev, card)
     phase_profile(bench, cons, dev, card)
+    sources = {"kth_largest": "kth_largest.cu",
+               "admit_submits": "quorum_phase.cu",
+               "ack_commit": "quorum_phase.cu"}
     say(json.dumps({"kernels": [{
-        "name": "kth_largest",
+        "name": name,
         "route": "cuda",
-        "source": "copycat_tpu_torch/csrc/kth_largest.cu",
-        "replaces": "copycat_tpu/ops/pallas_kernels.py:67",
-        "launches": launches,
-        "max_abs_err": max_err,
-        **timing,
-    }]}))
+        "source": f"copycat_tpu_torch/csrc/{src}",
+        "replaces": "copycat_tpu/ops/pallas_kernels.py:69",
+        "launches": launches[name],
+        "max_abs_err": errs[name],
+        **timing[name],
+    } for name, src in sources.items()]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -2,18 +2,22 @@
 
 A second package beside ``copycat_tpu``: the same ``[num_groups,
 num_peers]`` consensus engine, written as plain functions on torch
-tensors, with the quorum tally as a CUDA kernel written for Hopper
-(``csrc/kth_largest.cu``). It imports torch, numpy and the standard
-library only; ``copycat_tpu`` stays the reference it is tested against.
+tensors, with the quorum tally and the step phases around it as CUDA
+kernels written for Hopper (``csrc/``). It imports torch, numpy and the
+standard library only; ``copycat_tpu`` stays the reference it is tested
+against.
 
-- ``ops/kernels.py`` — the k-th-largest quorum tally (CUDA kernel and its
-  plain torch version);
+- ``ops/kernels.py`` — the quorum kernels (the k-th-largest tally, and
+  the fused phase-1 admission and phase-3 commit of ``step``) and their
+  plain torch versions;
 - ``ops/apply.py`` — the counter slice of the resource apply kernels;
 - ``ops/consensus.py`` — one synchronous Raft round over every group;
 - ``models/raft_groups.py`` — the host runtime (submit, step, harvest);
 - ``bench.py`` — the counter throughput bench
   (``python -m copycat_tpu_torch.bench``);
-- ``convert.py`` — state conversion to and from numpy leaves.
+- ``convert.py`` — state conversion to and from numpy leaves;
+- ``cases.py`` — random inputs, with edge cases, for the fused kernels'
+  tests.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a card they raise rather than fall back.

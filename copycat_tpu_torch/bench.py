@@ -12,7 +12,9 @@ of 5 after one warm-up repetition.
 - ms/round;
 - p50/p99 commit latency: rounds from leader-log append to apply (+1 for
   the appending round), histogrammed on the device, and in ms at the
-  measured round cadence.
+  measured round cadence;
+- launches per timed round of each quorum kernel (``launches_per_round``;
+  0 on the CPU, where the plain versions run).
 
 Run with ``python -m copycat_tpu_torch.bench``. It runs on the CUDA card
 and prints one JSON line naming the card and its power limit; without a
@@ -40,9 +42,12 @@ from .ops.consensus import (
     make_submits,
     step,
 )
-from .ops.kernels import kth_largest
+from .ops import kernels
 
 GROUPS, PEERS, LOG_SLOTS, SUBMIT_SLOTS = 10_000, 3, 64, 16
+KERNELS = {"kth_largest": kernels.kth_largest,
+           "admit_submits": kernels.admit_submits,
+           "ack_commit": kernels.ack_commit}
 ROUNDS, REPEATS = 200, 5
 SEED = 0
 
@@ -142,16 +147,17 @@ def run_throughput(groups: int = GROUPS, log_slots: int = LOG_SLOTS,
     state, n, _ = run(state)
     log(f"bench[counter]: warmup committed {int(n)} ops")
     best, best_dt, best_hist, reps = 0.0, 1.0, None, []
-    launches = 0
+    launches = dict.fromkeys(KERNELS, 0)
     for rep in range(repeats):
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
-        before = kth_largest.launches
+        before = {name: k.launches for name, k in KERNELS.items()}
         t0 = time.perf_counter()
         state, n, hist = run(state)
         n = int(n)                      # waits for the device
         dt = time.perf_counter() - t0
-        launches = kth_largest.launches - before
+        launches = {name: k.launches - before[name]
+                    for name, k in KERNELS.items()}
         ops = n / dt
         reps.append(ops)
         if ops >= best:
@@ -173,7 +179,8 @@ def run_throughput(groups: int = GROUPS, log_slots: int = LOG_SLOTS,
         "p99_commit_latency_rounds": p99_r,
         "p50_commit_latency_ms": p50_r * ms_per_round,
         "p99_commit_latency_ms": p99_r * ms_per_round,
-        "kth_launches_per_round": launches / rounds,
+        "launches_per_round": {name: n / rounds
+                               for name, n in launches.items()},
         **spread(reps),
         "shape": {"groups": G, "peers": P, "log_slots": L,
                   "submit_slots": S, "rounds": rounds, "repeats": repeats},

@@ -1,16 +1,16 @@
 // Quorum tally for the batched Raft step: per group, the k-th largest
 // (1-based) of x[g, 0..P) — Raft's quorum median over applied_index
 // (backpressure floor) and over matchIndex with the leader's own
-// last_index (commit candidate). Called twice per round.
+// last_index (commit candidate).
 //
 // Replaces the TPU kernel copycat_tpu/ops/pallas_kernels.py::_kth_kernel
 // (launched by kth_largest_pallas), which ran on a [P, G] transpose with
 // the group axis on the vector lanes. Here one thread owns one group: it
-// loads the group's P lanes into registers (P <= 8) and computes each
-// lane's tie-broken descending rank with O(P^2) compares — no sort, no
-// shared memory, no transpose. Exactly one lane has rank k-1; its value
-// is the answer. INT_MIN lanes rank like any other value, so the result
-// equals the plain torch version bit for bit.
+// loads the group's P lanes into registers (P <= 8) and rank-selects them
+// (quorum.cuh) — no sort, no shared memory, no transpose. The step no
+// longer launches it: the same select runs inside the two fused phase
+// kernels of quorum_phase.cu. This kernel stays the direct counterpart of
+// _kth_kernel and is held against the plain torch version.
 //
 // Bound on an H100: the function moves G*P*4 + G*4 bytes (160 KB at the
 // bench shape G=10,000, P=3), about 0.05 us at 3.35 TB/s, and does a few
@@ -26,6 +26,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "quorum.cuh"
+
 namespace {
 
 template <int P>
@@ -37,23 +39,13 @@ __global__ void kth_largest_kernel(const int32_t* __restrict__ x,
   int32_t v[P];
 #pragma unroll
   for (int p = 0; p < P; ++p) v[p] = row[p];
-  int32_t res = 0;
-#pragma unroll
-  for (int r = 0; r < P; ++r) {
-    int rank = 0;
-#pragma unroll
-    for (int s = 0; s < P; ++s)
-      rank += (v[s] > v[r]) || (v[s] == v[r] && s < r);
-    if (rank == k - 1) res = v[r];
-  }
-  out[g] = res;
+  out[g] = quorum::kth_select<P>(v, k);
 }
 
 template <int P>
 void launch(const int32_t* x, int32_t* out, int G, int k, cudaStream_t s) {
-  constexpr int kThreads = 256;
-  const int blocks = (G + kThreads - 1) / kThreads;
-  kth_largest_kernel<P><<<blocks, kThreads, 0, s>>>(x, out, G, k);
+  const int blocks = (G + quorum::kThreads - 1) / quorum::kThreads;
+  kth_largest_kernel<P><<<blocks, quorum::kThreads, 0, s>>>(x, out, G, k);
 }
 
 }  // namespace

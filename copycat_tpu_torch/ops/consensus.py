@@ -18,8 +18,11 @@ Differences from the reference, none of which changes a value:
   int32 draws ``(fresh, cand)`` and ``init_state`` the initial timers, so
   a caller owns its ``torch.Generator`` and a test can feed the
   reference's draws.
-- The device of the state chooses the quorum tally: the CUDA kernel on a
-  card, its plain version on the CPU (``ops/kernels.kth_largest``).
+- Phase 1's backpressure tally and admission, and phase 3 from the acks
+  to the commit advance, are each one call (``ops/kernels.admit_submits``
+  and ``ops/kernels.ack_commit``): the device of the state chooses a
+  fused CUDA kernel on a card and its plain version, the reference's
+  lines in torch, on the CPU.
 - Per-row selects use indexing and ``torch.gather`` where the reference
   used one-hot select-reduces (its gathers were slow on the TPU); the
   selected values are the same.
@@ -43,7 +46,7 @@ from .apply import (
     drain_events,
     init_resources,
 )
-from .kernels import kth_largest
+from .kernels import ack_commit, admit_submits, term_at_2d
 
 FOLLOWER, CANDIDATE, LEADER = 0, 1, 2
 
@@ -212,15 +215,6 @@ def _peer_view(x: torch.Tensor, lead: torch.Tensor) -> torch.Tensor:
     return x[g_ids, lead.clamp(min=0).long()]
 
 
-def _term_at_2d(log_term: torch.Tensor, last: torch.Tensor,
-                idx: torch.Tensor) -> torch.Tensor:
-    """Term lookup on a [G,L] ring at idx [G,P] (0 outside the live window)."""
-    L = log_term.shape[-1]
-    t = torch.gather(log_term, 1, ((idx - 1) % L).long())
-    valid = (idx >= 1) & (idx <= last[:, None]) & (idx > last[:, None] - L)
-    return torch.where(valid, t, 0)
-
-
 def _term_at_own(log_term: torch.Tensor, last: torch.Tensor,
                  idx: torch.Tensor) -> torch.Tensor:
     """Term lookup on each replica's own [G,P,L] ring at idx [G,P]."""
@@ -291,7 +285,8 @@ def current_leader(state: RaftState) -> tuple[torch.Tensor, torch.Tensor]:
 
 def _normalize_submits(submits: Submits, G: int, dev: torch.device
                        ) -> Submits:
-    """Expand compact submit leaves to full ``[G, S]`` int32 tensors."""
+    """Expand compact submit leaves to full ``[G, S]`` int32 tensors; the
+    ``valid`` mask comes out contiguous, as the admission kernel takes it."""
     S = submits.valid.shape[-1]
 
     def norm(x):
@@ -306,7 +301,7 @@ def _normalize_submits(submits: Submits, G: int, dev: torch.device
     return Submits(opcode=norm(submits.opcode), a=norm(submits.a),
                    b=norm(submits.b), c=norm(submits.c), tag=tag,
                    valid=torch.as_tensor(submits.valid, dtype=torch.bool,
-                                         device=dev))
+                                         device=dev).contiguous())
 
 
 # ---------------------------------------------------------------------------
@@ -347,7 +342,6 @@ def step(state: RaftState, submits: Submits, deliver: torch.Tensor,
     l_term = _peer_view(state.term, lead)          # [G]
     l_last = _peer_view(state.last_index, lead)    # [G]
     l_commit = _peer_view(state.commit_index, lead)
-    l_applied = _peer_view(state.applied_index, lead)
     l_next = _peer_view(state.next_index, lead)    # [G,P]
     l_match = _peer_view(state.match_index, lead)  # [G,P]
     l_log_term = _peer_view(state.log_term, lead)  # [G,L]
@@ -362,20 +356,17 @@ def step(state: RaftState, submits: Submits, deliver: torch.Tensor,
     # ---- phase 1: inject client submits into the leader log ----
     # Backpressure: never let the ring overwrite entries the leader itself
     # or a quorum-th replica still has to apply.
-    q_applied = kth_largest(state.applied_index, quorum)
-    allowed_last = torch.minimum(l_applied, q_applied) + L
-
     accept_ok = active
     if config.lease_gated_accept:
         # last round's quorum-ack witness at the leader lane
         accept_ok = active & _peer_view(state.lease, lead)
-    valid = submits.valid & accept_ok[:, None]
-    pos = l_last[:, None] + torch.cumsum(valid, dim=1, dtype=i32)
-    accepted = valid & (pos <= allowed_last[:, None])
-    # Accepted slots land at distinct ring slots (consecutive positions
-    # inside the backpressure window), so one scatter per log array writes
-    # them all; rejected slots go to a spill column that is cut off.
-    slot_s = torch.where(accepted, (pos - 1) % L, L).long()   # [G,S]
+    admission = admit_submits(state.applied_index.contiguous(), lead,
+                               accept_ok, submits.valid, l_last, quorum, L)
+    accepted = admission.accepted
+    # Accepted slots land at distinct ring slots, so one scatter per log
+    # array writes them all; rejected slots go to a spill column (slot L)
+    # that is cut off.
+    slot_s = admission.slot                                   # [G,S] i64
 
     def _inject(log: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
         ext = torch.cat([log, log[:, :1]], dim=1)
@@ -388,7 +379,7 @@ def step(state: RaftState, submits: Submits, deliver: torch.Tensor,
     l_log_c = _inject(l_log_c, submits.c)
     l_log_time = _inject(l_log_time, l_clock[:, None])
     l_log_tag = _inject(l_log_tag, submits.tag)
-    l_last = l_last + accepted.sum(dim=1, dtype=i32)
+    l_last = admission.l_last
 
     # ---- phase 2: AppendEntries leader → followers ----
     del_fwd = _peer_view(deliver, lead)                      # deliver[g,lead,f]
@@ -400,7 +391,7 @@ def step(state: RaftState, submits: Submits, deliver: torch.Tensor,
     can_serve = prev > l_last[:, None] - L
     stale = recv & ~can_serve
     recv = recv & can_serve
-    prev_term = _term_at_2d(l_log_term, l_last, prev)
+    prev_term = term_at_2d(l_log_term, l_last, prev)
     upto = torch.minimum(prev + E, l_last[:, None])
 
     msg_term = l_term[:, None]
@@ -452,32 +443,15 @@ def step(state: RaftState, submits: Submits, deliver: torch.Tensor,
         state.commit_index)
 
     # ---- phase 3: acks → matchIndex/nextIndex, quorum commit advance ----
-    ack_seen = (recv | reject_term) & del_back
-    leader_stale = active & (ack_seen & (term1 > l_term[:, None])).any(dim=1)
-    max_ack_term = torch.where(ack_seen, term1, 0).amax(dim=1)
-
-    ack_success = match & del_back
-    ack_match = torch.where(entries_sent, upto, prev)
-    l_match = torch.where(ack_success, torch.maximum(l_match, ack_match),
-                          l_match)
-    l_next = torch.where(ack_success, l_match + 1, l_next)
-    ack_fail = ok_term & ~match & del_back
-    hint = torch.where(prev <= state.last_index, prev - 1, state.last_index)
-    l_next = torch.where(ack_fail,
-                         torch.minimum(prev, hint + 1).clamp(min=1), l_next)
-
+    l_match, l_next, leader_stale, lease_g, max_ack_term, l_commit = \
+        ack_commit(recv=recv, reject_term=reject_term, del_back=del_back,
+                   match=match, entries_sent=entries_sent, ok_term=ok_term,
+                   upto=upto, prev=prev, term1=term1,
+                   last_index=state.last_index.contiguous(),
+                   l_match=l_match, l_next=l_next, lead=lead, active=active,
+                   l_term=l_term, l_last=l_last, l_commit=l_commit,
+                   l_log_term=l_log_term, quorum=quorum)
     self_lane = peer_ids[None, :] == lead[:, None]
-    # Leader lease: a quorum of same-term acks this round (self included)
-    # with no higher term observed.
-    match_full = torch.where(self_lane, l_last[:, None], l_match)
-    acked = (ack_success | self_lane).sum(dim=1, dtype=i32)
-    lease_g = active & ~leader_stale & (acked >= quorum)
-    cand_commit = kth_largest(match_full, quorum)
-    cand_commit_term = _term_at_2d(l_log_term, l_last,
-                                   cand_commit[:, None])[:, 0]
-    advance = active & ~leader_stale & (cand_commit > l_commit) \
-        & (cand_commit_term == l_term)
-    l_commit = torch.where(advance, cand_commit, l_commit)
 
     # Scatter the leader view back into replica lanes.
     sc = ~leader_stale & active
@@ -618,7 +592,7 @@ def step(state: RaftState, submits: Submits, deliver: torch.Tensor,
         ev_seq=_peer_view(ev_seq, lead), ev_code=_peer_view(ev_code, lead),
         ev_target=_peer_view(ev_target, lead),
         ev_arg=_peer_view(ev_arg, lead), ev_valid=lead_ev,
-        assigned=torch.where(accepted, pos, 0),
+        assigned=admission.assigned,
         assigned_term=torch.where(accepted, l_term[:, None], 0),
         out_index=torch.where(out_valid, rep3(idx_all), 0),
         out_term=torch.where(out_valid, rep3(ga(log_term2)), 0),
