@@ -11,28 +11,47 @@ Phases, each of which raises (and so exits non-zero) on failure:
    for bit: the quorum tally ``kth_largest`` over G ∈ {10,000, 100,000,
    1,001}, P ∈ {3, 5, 7}, k ∈ {P//2+1, 1, P}, with duplicate rows and
    INT_MIN lanes; the fused phase kernels ``admit_submits`` and
-   ``ack_commit`` over the same G and P on ``copycat_tpu_torch/cases.py``'s
+   ``ack_commit`` over the same G and P, and at the mixed bench's shape
+   (G=100,000, P=5, S=16, L=32), on ``copycat_tpu_torch/cases.py``'s
    inputs (leaderless groups, commit candidate 0, candidates below the
    ring's window, stale leaders, duplicate matchIndex values, submits all
    refused by backpressure); plus the floor-mod and first-index argmax the
    step relies on;
-3. path — the consensus step on the card (fused kernels) and on the CPU
-   (plain versions) from one state and one set of timer draws, G=1,000,
-   P=3, L=64, S=16, 50 rounds under random partitions: every state and
-   output leaf equal every round, and one launch of each fused kernel per
-   card round;
-4. serve — the main path: ``RaftGroups(10_000, 3, log_slots=64,
-   submit_slots=16)`` elects leaders and answers a few hundred
-   ``OP_LONG_ADD`` requests, each checked against its running sum; the
-   fused kernels' launch counts, zeroed just before, must rise (the
-   standalone tally is off the main path);
-5. bench — the counter bench at full size (G=10,000 × P=3 × L=64 × S=16),
-   with one launch of each fused kernel per round; each kernel's time per
-   call beside its plain version, a library call computing the same
+3. counter path — the consensus step on the card (fused kernels) and on
+   the CPU (plain versions) from one state and one set of timer draws,
+   G=1,000, P=3, L=64, S=16, counters only, 50 rounds under random
+   partitions: every state and output leaf equal every round, and one
+   launch of each fused kernel per card round;
+4. mixed path — the same at G=1,000, P=5, L=32, S=16 with every resource
+   pool (``ResourceConfig()``), ``pool_budgets=(4,6,4,6,4,4,4,4)`` and
+   opcodes drawn from the whole catalog, 40 rounds, one lane per group
+   isolated in rounds 10-29 so that snapshots get installed;
+5. counter serve — ``RaftGroups(10_000, 3, log_slots=64,
+   submit_slots=16)`` with counters only elects leaders and answers a few
+   hundred ``OP_LONG_ADD`` requests, each checked against its running
+   sum; the fused kernels' launch counts, zeroed just before, must rise;
+6. pool serve — the same engine at the default config (every pool)
+   answers map put/get, queue offer/offer/poll, the lock chain (acquire
+   1; acquire 2 queued; release 1 hands the lock to 2 with an
+   ``EV_LOCK_GRANT`` event) and the election chain (listen 4 wins; listen
+   5 waits; resign 4 hands over to 5 with an ``EV_ELECT`` event carrying
+   the epoch) on a few hundred groups, each answer and event checked
+   against a plain Python model;
+7. counter bench — the counter bench at full size (G=10,000 × P=3 × L=64
+   × S=16), one launch of each fused kernel per round; each kernel's time
+   per call beside its plain version, a library call computing the same
    function where there is one, and its bound — the fused kernels on the
    inputs the bench's step gives them; then a short ``torch.profiler``
    window of the same step: kernel time, the device's idle share and
-   launches per round.
+   launches per round;
+8. mixed bench — BASELINE config #5 at full width (G=100,000 × P=5 ×
+   L=32 × S=16) under the partition nemesis, budgets 4,6,4,6,4,4,4,4,
+   timers 2-4: committed ops/s, ms/round, p50/p99 commit latency, one
+   launch of each fused kernel per round, and replicas at equal applied
+   index holding equal resource leaves; the fused kernels timed on the
+   mixed step's inputs; the apply's time per round; a profiler window;
+9. short map and lock benches at G=10,000 × P=3 × L=64 with their
+   budgets, and a profiler window of the map round.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a card it exits non-zero and
@@ -44,12 +63,16 @@ from __future__ import annotations
 import json
 import sys
 import time
+from collections import deque
 
 import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 SCALAR_OPS_PER_S = 67e12        # H100 SXM 32-bit rate outside the tensor cores
+MIXED = dict(scenario="mixed", groups=100_000, peers=5)
+MIXED_ROUNDS, MIXED_REPEATS = 200, 5    # the reference's
+SHORT_ROUNDS, SHORT_REPEATS = 20, 2
 
 
 def say(msg: str) -> None:
@@ -150,6 +173,7 @@ def phase_kernel(kernels, cases, dev) -> dict:
     rng = np.random.default_rng(0)
     worst = {"kth_largest": 0, "admit_submits": 0, "ack_commit": 0}
     n = dict.fromkeys(worst, 0)
+    fused = []
     for G in (10_000, 100_000, 1_001):
         for P in (3, 5, 7):
             x = torch.from_numpy(edge_rows(rng, G, P)).to(dev)
@@ -163,24 +187,26 @@ def phase_kernel(kernels, cases, dev) -> dict:
                         f"kernel != plain at G={G} P={P} k={k}: err {err}")
                 worst["kth_largest"] = max(worst["kth_largest"], err)
                 n["kth_largest"] += 1
-            quorum = P // 2 + 1
-            S, L = (5, 16) if G == 1_001 else (16, 64)
-            where = f"G={G} P={P} S={S} L={L}"
-            a = on_card(cases.admit_case(rng, G, P, S, L), dev)
-            got = kernels.admit_submits_cuda(**a, quorum=quorum, L=L)
-            want = kernels.admit_submits_plain(**a, quorum=quorum, L=L)
-            torch.cuda.synchronize()
-            worst["admit_submits"] = max(worst["admit_submits"], max_err(
-                got, want, f"admit_submits at {where}"))
-            c = on_card(cases.ack_case(rng, G, P, L), dev)
-            c["l_log_term"] = widen_ring(c["l_log_term"])
-            got = kernels.ack_commit_cuda(**c, quorum=quorum)
-            want = kernels.ack_commit_plain(**c, quorum=quorum)
-            torch.cuda.synchronize()
-            worst["ack_commit"] = max(worst["ack_commit"], max_err(
-                got, want, f"ack_commit at {where}"))
-            n["admit_submits"] += 1
-            n["ack_commit"] += 1
+            fused.append((G, P) + ((5, 16) if G == 1_001 else (16, 64)))
+    fused.append((100_000, 5, 16, 32))      # the mixed bench's shape
+    for G, P, S, L in fused:
+        quorum = P // 2 + 1
+        where = f"G={G} P={P} S={S} L={L}"
+        a = on_card(cases.admit_case(rng, G, P, S, L), dev)
+        got = kernels.admit_submits_cuda(**a, quorum=quorum, L=L)
+        want = kernels.admit_submits_plain(**a, quorum=quorum, L=L)
+        torch.cuda.synchronize()
+        worst["admit_submits"] = max(worst["admit_submits"], max_err(
+            got, want, f"admit_submits at {where}"))
+        c = on_card(cases.ack_case(rng, G, P, L), dev)
+        c["l_log_term"] = widen_ring(c["l_log_term"])
+        got = kernels.ack_commit_cuda(**c, quorum=quorum)
+        want = kernels.ack_commit_plain(**c, quorum=quorum)
+        torch.cuda.synchronize()
+        worst["ack_commit"] = max(worst["ack_commit"], max_err(
+            got, want, f"ack_commit at {where}"))
+        n["admit_submits"] += 1
+        n["ack_commit"] += 1
     for name, cnt in n.items():
         say(f"kernel: {name}: {cnt} cases equal to the plain version bit "
             f"for bit (max |err| {worst[name]})")
@@ -204,10 +230,12 @@ def counts(kernels_by_name: dict) -> dict:
     return {name: k.launches for name, k in kernels_by_name.items()}
 
 
-def phase_path(cons, convert, ap, ks: dict, dev) -> None:
-    G, P, L, S, rounds = 1_000, 3, 64, 16, 50
-    cfg = cons.Config(append_window=S, applies_per_round=S,
-                      resource=ap.ResourceConfig.counters_only())
+def phase_path(cons, convert, ks: dict, dev, name: str, P: int, L: int,
+               rounds: int, cfg, ops: np.ndarray) -> None:
+    """The CUDA step against the CPU step from one state and one set of
+    timer draws, G=1,000, S=16, submits drawn from ``ops``; one lane per
+    group isolated in rounds 10-29, random message loss otherwise."""
+    G, S = 1_000, cfg.append_window
     rng = np.random.default_rng(1)
 
     def draws():
@@ -217,11 +245,8 @@ def phase_path(cons, convert, ap, ks: dict, dev) -> None:
     timer = torch.from_numpy(draws())
     cpu = cons.init_state(G, P, L, timer, cfg)
     gpu = cons.init_state(G, P, L, timer.to(dev), cfg)
-    ops = np.array([ap.OP_LONG_ADD] * 6 + [ap.OP_VALUE_SET, ap.OP_VALUE_GET,
-                                            ap.OP_VALUE_CAS, ap.OP_MAP_PUT],
-                   np.int32)
     victims = rng.integers(0, P, G)
-    installs = 0
+    installs = events = 0
     zero_counts(ks)
     for r in range(rounds):
         sub = dict(opcode=rng.choice(ops, (G, S)).astype(np.int32),
@@ -246,13 +271,14 @@ def phase_path(cons, convert, ap, ks: dict, dev) -> None:
         (cpu, out_c), (gpu, out_g) = outs
         for what, a, b in (("outputs", out_c, out_g), ("state", cpu, gpu)):
             want, got = convert.flat_leaves(a), convert.flat_leaves(b)
-            for name, w in want.items():
-                g = got[name]
+            for leaf, w in want.items():
+                g = got[leaf]
                 if w is None and g is None:
                     continue
                 if w.dtype != g.dtype or not np.array_equal(w, g):
                     raise AssertionError(
-                        f"path: {what}.{name} differs at round {r}")
+                        f"{name}: {what}.{leaf} differs at round {r}")
+        events += int(out_c.ev_valid.sum())
         if out_c.stale.any():
             cpu = cons.install_snapshots(cpu, out_c.stale, out_c.leader, cfg)
             gpu = cons.install_snapshots(gpu, out_g.stale, out_g.leader, cfg)
@@ -260,18 +286,24 @@ def phase_path(cons, convert, ap, ks: dict, dev) -> None:
     launched = counts(ks)
     if launched != {"kth_largest": 0, "admit_submits": rounds,
                     "ack_commit": rounds}:
-        raise AssertionError(f"path: kernel launches {launched} in "
+        raise AssertionError(f"{name}: kernel launches {launched} in "
                              f"{rounds} card rounds; want one of each "
                              "fused kernel a round")
-    say(f"path: CUDA step == CPU step on every leaf for {rounds} rounds "
-        f"(G={G} P={P} L={L} S={S}, random partitions, {installs} snapshot "
-        f"installs); card rounds launched {launched}")
+    if not installs:
+        raise AssertionError(f"{name}: no snapshot was installed")
+    say(f"{name}: CUDA step == CPU step on every leaf for {rounds} rounds "
+        f"(G={G} P={P} L={L} S={S}, pools {dict(cfg.resource._asdict())}, "
+        f"pool_budgets {cfg.pool_budgets}, random partitions, {installs} "
+        f"snapshot installs, {events} session events drained); card "
+        f"rounds launched {launched}")
 
 
-def phase_serve(RaftGroups, ap, ks: dict) -> dict:
+def phase_serve(RaftGroups, cons, ap, ks: dict) -> dict:
     zero_counts(ks)
     t0 = time.perf_counter()
-    rg = RaftGroups(10_000, 3, log_slots=64, submit_slots=16)
+    rg = RaftGroups(10_000, 3, log_slots=64, submit_slots=16,
+                    config=cons.Config(
+                        resource=ap.ResourceConfig.counters_only()))
     rg.wait_for_leaders()
     rng = np.random.default_rng(2)
     groups = rng.integers(0, 10_000, 300)
@@ -305,6 +337,161 @@ def phase_serve(RaftGroups, ap, ks: dict) -> dict:
     return launches
 
 
+class GroupModel:
+    """The plain semantics of the map, queue, lock and election ops for
+    one group that starts empty. An election epoch is the log index of
+    the entry that set it, which the host does not choose: the model takes
+    the device's value where it first sees one, requiring it to grow."""
+
+    def __init__(self, ap):
+        self.ap = ap
+        self.map: dict[int, int] = {}
+        self.queue: deque = deque()
+        self.holder, self.waiters = -1, deque()
+        self.leader, self.epoch, self.listeners = -1, 0, deque()
+        self.events: list = []          # (code, target, arg)
+
+    def _new_epoch(self, got: int) -> int:
+        if got <= self.epoch:
+            raise AssertionError(f"epoch {got} does not grow past "
+                                 f"{self.epoch}")
+        self.epoch = got
+        return got
+
+    def answer(self, op: int, a: int, b: int, got: int) -> int:
+        """The model's answer to (op, a, b); ``got`` is the device's."""
+        ap = self.ap
+        if op == ap.OP_MAP_PUT:
+            prev, self.map[a] = self.map.get(a, 0), b
+            return prev
+        if op == ap.OP_MAP_GET:
+            return self.map.get(a, 0)
+        if op == ap.OP_Q_OFFER:
+            self.queue.append(a)
+            return 1
+        if op == ap.OP_Q_POLL:
+            return self.queue.popleft() if self.queue else ap.FAIL
+        if op == ap.OP_Q_SIZE:
+            return len(self.queue)
+        if op == ap.OP_LOCK_ACQUIRE:
+            if self.holder in (-1, a):
+                self.holder = a
+                return 1
+            if b != 0 and a not in self.waiters:
+                self.waiters.append(a)
+            return 2 if a in self.waiters else 0
+        if op == ap.OP_LOCK_RELEASE:
+            if self.holder != a:
+                return 0
+            self.holder = self.waiters.popleft() if self.waiters else -1
+            if self.holder != -1:
+                self.events.append((ap.EV_LOCK_GRANT, self.holder, 1))
+            return 1
+        if op == ap.OP_LOCK_HOLDER:
+            return self.holder
+        if op == ap.OP_ELECT_LISTEN:
+            if self.leader == -1:
+                self.leader = a
+                return self._new_epoch(got)
+            if self.leader == a:
+                return self.epoch
+            if a not in self.listeners:
+                self.listeners.append(a)
+            return 0
+        if op == ap.OP_ELECT_RESIGN:
+            if self.leader != a:
+                return 0
+            self.leader = self.listeners.popleft() if self.listeners else -1
+            if self.leader != -1:
+                self.events.append((ap.EV_ELECT, self.leader, None))
+            return 1
+        if op == ap.OP_ELECT_GET_EPOCH:
+            if self.events and self.events[-1][2] is None:
+                code, target, _ = self.events[-1]
+                self.events[-1] = (code, target, self._new_epoch(got))
+            return self.epoch
+        if op == ap.OP_ELECT_LEADER:
+            return self.leader
+        raise ValueError(f"opcode {op} is not modelled")
+
+
+def pool_chains(ap) -> dict:
+    """The op chains the pool serve phase submits, one chain per group."""
+    return {
+        "map": lambda g: [(ap.OP_MAP_PUT, g % 7, g), (ap.OP_MAP_GET, g % 7, 0),
+                          (ap.OP_MAP_PUT, g % 7, g + 1),
+                          (ap.OP_MAP_GET, g % 7, 0), (ap.OP_MAP_GET, 99, 0)],
+        "queue": lambda g: [(ap.OP_Q_OFFER, g, 0), (ap.OP_Q_OFFER, -g, 0),
+                            (ap.OP_Q_POLL, 0, 0), (ap.OP_Q_SIZE, 0, 0)],
+        "lock": lambda g: [(ap.OP_LOCK_ACQUIRE, 1, 0),
+                           (ap.OP_LOCK_ACQUIRE, 2, -1),
+                           (ap.OP_LOCK_RELEASE, 1, 0),
+                           (ap.OP_LOCK_HOLDER, 0, 0)],
+        "election": lambda g: [(ap.OP_ELECT_LISTEN, 4, 0),
+                               (ap.OP_ELECT_LISTEN, 5, 0),
+                               (ap.OP_ELECT_RESIGN, 4, 0),
+                               (ap.OP_ELECT_GET_EPOCH, 0, 0),
+                               (ap.OP_ELECT_LEADER, 0, 0)],
+    }
+
+
+def phase_pool_serve(RaftGroups, ap, ks: dict) -> dict:
+    """Requests to every pool kind through the engine at its default
+    config, checked answer by answer and event by event."""
+    zero_counts(ks)
+    t0 = time.perf_counter()
+    rg = RaftGroups(10_000, 3, log_slots=64, submit_slots=16)
+    if rg.config.resource != ap.ResourceConfig():
+        raise AssertionError(f"pool serve: RaftGroups defaults to "
+                             f"{rg.config.resource}, not every pool")
+    rg.wait_for_leaders()
+    rng = np.random.default_rng(4)
+    chains = pool_chains(ap)
+    kinds = list(chains)
+    groups = rng.choice(10_000, 400, replace=False).tolist()
+    plan = []                               # (group, kind, ops, tags)
+    for i, g in enumerate(groups):
+        kind = kinds[i % len(kinds)]
+        ops = chains[kind](g)
+        if kind == "map":                   # the vectorized submit lane
+            arr = np.asarray(ops)
+            tags = list(rg.submit_batch(np.full(len(ops), g), arr[:, 0],
+                                        arr[:, 1], arr[:, 2]))
+        else:
+            tags = [rg.submit(g, *op) for op in ops]
+        plan.append((g, kind, ops, tags))
+    all_tags = [t for *_, tags in plan for t in tags]
+    rg.run_until(all_tags)
+    rg.run(4)   # followers apply the last commit; events drain
+    launches = counts(ks)
+    dt = time.perf_counter() - t0
+    n_events = 0
+    for g, kind, ops, tags in plan:
+        model = GroupModel(ap)
+        for (op, a, b), tag in zip(ops, tags):
+            got = rg.results[tag]
+            want = model.answer(op, a, b, got)
+            if got != want:
+                raise AssertionError(f"pool serve: {kind} op {op}({a}, {b}) "
+                                     f"on group {g} answered {got}, the "
+                                     f"model {want}")
+        events = [e[1:] for e in rg.events.get(g, [])]
+        if events != model.events:
+            raise AssertionError(f"pool serve: group {g} ({kind}) events "
+                                 f"{events}, the model {model.events}")
+        n_events += len(events)
+    for name in ("admit_submits", "ack_commit"):
+        if launches[name] == 0:
+            raise AssertionError(f"pool serve: the {name} kernel never "
+                                 "launched")
+    say(f"pool serve: {len(all_tags)} requests (map, queue, lock and "
+        f"election chains) on {len(groups)} of 10000 groups at the default "
+        f"config answered as the model does, with {n_events} lock-grant and "
+        f"election events, in {rg.rounds} rounds ({dt:.1f}s); kernel "
+        f"launches {launches}")
+    return launches
+
+
 def bounds(nbytes: int, ops: int) -> dict:
     """The least time of a call: bytes over the memory rate or integer
     operations over the 32-bit rate, whichever is larger."""
@@ -314,14 +501,13 @@ def bounds(nbytes: int, ops: int) -> dict:
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")
 
 
-def step_inputs(bench, cons, dev) -> dict:
-    """The arguments the bench's step hands each fused kernel, recorded in
-    the third round after every leader is elected."""
-    cfg, gen, state, deliver, submits = bench.counter_setup(device=dev)
-    G, P = state.term.shape
+def step_inputs(bench, cons, dev, names, **cell) -> dict:
+    """The arguments a bench cell's step hands each function of ``names``
+    (module attributes of the consensus step), recorded in the third round
+    after every leader is elected."""
+    c, state = bench.setup(rounds=3, device=dev, **cell)
     seen = {}
-    real = {"admit_submits": cons.admit_submits,
-            "ack_commit": cons.ack_commit}
+    real = {name: getattr(cons, name) for name in names}
 
     def recorder(name):
         def call(*args, **kw):
@@ -329,50 +515,25 @@ def step_inputs(bench, cons, dev) -> dict:
             return real[name](*args, **kw)
         return call
 
-    cons.admit_submits = recorder("admit_submits")
-    cons.ack_commit = recorder("ack_commit")
+    for name in names:
+        setattr(cons, name, recorder(name))
     try:
-        for _ in range(3):
-            state, _ = cons.step(state, submits, deliver,
-                                 cons.draw_timers(G, P, cfg, gen),
-                                 cons.draw_timers(G, P, cfg, gen), cfg)
+        for r in range(3):
+            state, _ = bench.step_cell(c, state, r)
     finally:
-        cons.admit_submits = real["admit_submits"]
-        cons.ack_commit = real["ack_commit"]
+        for name, fn in real.items():
+            setattr(cons, name, fn)
     return seen
 
 
-def phase_bench(bench, cons, kernels, dev, card: str) -> tuple[dict, dict]:
-    zero_counts(bench.KERNELS)
-    result = bench.run_throughput()
-    per_round = result["launches_per_round"]
-    if per_round != {"kth_largest": 0, "admit_submits": 1, "ack_commit": 1}:
-        raise AssertionError(f"bench: kernel launches per round {per_round};"
-                             " want one of each fused kernel")
-    say(f"bench: {result['value']:.1f} committed ops/s, "
-        f"{result['ms_per_round']:.4f} ms/round, p50 "
-        f"{result['p50_commit_latency_rounds']} rounds "
-        f"({result['p50_commit_latency_ms']:.4f} ms), p99 "
-        f"{result['p99_commit_latency_rounds']} rounds "
-        f"({result['p99_commit_latency_ms']:.4f} ms) at G=10000 P=3 L=64 "
-        f"S=16 on {card}; kernel launches per timed round {per_round}")
-    say("bench: " + json.dumps(result))
-
-    # kth_largest alone, at the shape of the step's tallies
-    G, P, k = 10_000, 3, 2
-    rng = np.random.default_rng(3)
-    x = torch.from_numpy(rng.integers(0, 1 << 20, (G, P)).astype(np.int32)
-                         ).to(dev)
-    fns = {"kth_largest": (
-        lambda: kernels.kth_largest_cuda(x, k),
-        lambda: kernels.kth_largest_plain(x, k),
-        lambda: torch.topk(x, k, dim=1).values[:, -1],
-        bounds(G * P * 4 + G * 4, 2 * G * P * P))}
-
-    # the fused kernels, on the bench step's own inputs
-    seen = step_inputs(bench, cons, dev)
+def fused_fns(bench, cons, kernels, dev, **cell) -> dict:
+    """(kernel, plain, library, bound) of each fused kernel on the inputs
+    a bench cell's step gives it."""
+    seen = step_inputs(bench, cons, dev, ("admit_submits", "ack_commit"),
+                       **cell)
     a_args, a_kw = seen["admit_submits"]
     (G, P), S = a_args[0].shape, a_args[3].shape[1]
+    fns = {}
     # reads: applied, lead, accept_ok, valid, l_last; writes: accepted,
     # assigned, slot (int64), l_last. Operations: the rank-select's 2·P²
     # compares, then about 8 per submit slot.
@@ -401,9 +562,11 @@ def phase_bench(bench, cons, kernels, dev, card: str) -> tuple[dict, dict]:
         bounds(G * (6 * P + 24 * P + 17) + 4 * n_live + G * (8 * P + 10),
                G * (2 * P * P + 24 * P)))
     for name, (kern, plain, _, _) in fns.items():
-        if name != "kth_largest":
-            max_err(kern(), plain(), f"{name} on the bench step's inputs")
+        max_err(kern(), plain(), f"{name} on the bench step's inputs")
+    return fns
 
+
+def time_fns(fns: dict, per_round: dict, where: str, card: str) -> dict:
     timing = {}
     for name, (kern, plain, library, bound) in fns.items():
         dev_ms = {"ms": graph_ms(kern), "plain_ms": graph_ms(plain),
@@ -412,38 +575,136 @@ def phase_bench(bench, cons, kernels, dev, card: str) -> tuple[dict, dict]:
                    "library_call_ms": time_ms(library) if library else None}
         timing[name] = dict(**dev_ms, **bound, **call_ms,
                             launches_per_bench_round=per_round[name])
-        say(f"kernel time of {name} at G=10000 P=3 on {card}: device time "
+        say(f"kernel time of {name} at {where} on {card}: device time "
             f"per call (CUDA graph) {dev_ms['ms']:.6f} ms, plain torch "
             f"{dev_ms['plain_ms']:.6f} ms, library {dev_ms['library_ms']}; "
             f"eager call time {call_ms['call_ms']:.6f} ms, plain torch "
             f"{call_ms['plain_call_ms']:.6f} ms, library "
             f"{call_ms['library_call_ms']}; bound {bound['bound_ms']:.7f} ms "
             f"({bound['bound_by']})")
+    return timing
+
+
+def report_bench(name: str, result: dict, card: str) -> None:
+    """Print a bench result; raise unless each fused kernel launched once
+    a round and the replicas at equal applied index agree."""
+    per_round = result["launches_per_round"]
+    want = {"kth_largest": 0, "admit_submits": 1, "ack_commit": 1}
+    if per_round != want:
+        raise AssertionError(f"{name}: kernel launches per round "
+                             f"{per_round}; want one of each fused kernel")
+    if result["diverged_lanes"]:
+        raise AssertionError(f"{name}: {result['diverged_lanes']} replica "
+                             "pairs at equal applied index differ")
+    sh = result["shape"]
+    say(f"{name}: {result['value']:.1f} committed ops/s (reps "
+        f"{result['reps_min']:.1f}..{result['reps_max']:.1f}), "
+        f"{result['ms_per_round']:.4f} ms/round, p50 "
+        f"{result['p50_commit_latency_rounds']} rounds "
+        f"({result['p50_commit_latency_ms']:.4f} ms), p99 "
+        f"{result['p99_commit_latency_rounds']} rounds "
+        f"({result['p99_commit_latency_ms']:.4f} ms) at G={sh['groups']} "
+        f"P={sh['peers']} L={sh['log_slots']} S={sh['submit_slots']}, "
+        f"{sh['rounds']} rounds x {sh['repeats']} reps, budgets "
+        f"{sh['pool_budgets']}, nemesis {sh['nemesis']}, on {card}; kernel "
+        f"launches per timed round {per_round}; replicas at equal applied "
+        f"index agree")
+    say(f"{name}: " + json.dumps(result))
+
+
+def phase_bench(bench, cons, kernels, dev, card: str) -> tuple[dict, dict]:
+    zero_counts(bench.KERNELS)
+    result = bench.run_throughput()
+    report_bench("bench", result, card)
+
+    # kth_largest alone, at the shape of the step's tallies
+    G, P, k = 10_000, 3, 2
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.integers(0, 1 << 20, (G, P)).astype(np.int32)
+                         ).to(dev)
+    fns = {"kth_largest": (
+        lambda: kernels.kth_largest_cuda(x, k),
+        lambda: kernels.kth_largest_plain(x, k),
+        lambda: torch.topk(x, k, dim=1).values[:, -1],
+        bounds(G * P * 4 + G * 4, 2 * G * P * P))}
+    # the fused kernels, on the bench step's own inputs
+    fns.update(fused_fns(bench, cons, kernels, dev))
+    timing = time_fns(fns, result["launches_per_round"], "G=10000 P=3",
+                      card)
     return result, timing
 
 
-def phase_profile(bench, cons, dev, card: str, rounds: int = 20) -> None:
-    """Where a counter round's time goes: ``rounds`` rounds of the bench's
-    step under ``torch.profiler``: wall time, summed kernel time, the
-    device's idle share, kernel launches per round and the top kernels."""
+def phase_mixed_bench(bench, cons, ap, kernels, dev, card: str
+                      ) -> tuple[dict, dict]:
+    """BASELINE config #5 at full width under the nemesis, with the kernel
+    counts zeroed just before and read just after; then the fused kernels
+    timed on its step's inputs and the apply's time per round."""
+    zero_counts(bench.KERNELS)
+    t0 = time.perf_counter()
+    result = bench.run_throughput(rounds=MIXED_ROUNDS,
+                                  repeats=MIXED_REPEATS, **MIXED)
+    launches = counts(bench.KERNELS)
+    dt = time.perf_counter() - t0
+    if (MIXED_ROUNDS, MIXED_REPEATS) != (bench.ROUNDS, bench.REPEATS):
+        say(f"mixed bench: cut to {MIXED_ROUNDS} rounds x {MIXED_REPEATS} "
+            f"repetitions (the reference runs {bench.ROUNDS} x "
+            f"{bench.REPEATS}); G, P and L as the reference's")
+    report_bench("mixed bench", result, card)
+    say(f"mixed bench: {dt:.1f}s in all, election and warm-up included")
+
+    fns = fused_fns(bench, cons, kernels, dev, **MIXED)
+    timing = time_fns(fns, result["launches_per_round"],
+                      "G=100000 P=5 L=32 S=16 (mixed bench step)", card)
+
+    # the apply phase alone (apply_window on a mixed round's own inputs)
+    args, kw = step_inputs(bench, cons, dev, ("apply_window",),
+                           **MIXED)["apply_window"]
+    apply_ms = time_ms(lambda: ap.apply_window(*args, **kw), iters=10,
+                       warmup=3)
+    share = apply_ms / result["ms_per_round"]
+    say(f"mixed bench: apply_window takes {apply_ms:.3f} ms per round "
+        f"(eager, CUDA events), {share:.3f} of the "
+        f"{result['ms_per_round']:.3f} ms round, on {card}")
+    result["apply_ms"], result["apply_share"] = apply_ms, share
+    result["launches"] = launches
+    return result, timing
+
+
+def phase_short_benches(bench, card: str) -> dict:
+    """The map and lock cells at the reference's defaults, briefly."""
+    out = {}
+    for scenario in ("map", "lock"):
+        zero_counts(bench.KERNELS)
+        result = bench.run_throughput(scenario, rounds=SHORT_ROUNDS,
+                                      repeats=SHORT_REPEATS)
+        report_bench(f"{scenario} bench", result, card)
+        out[scenario] = result
+    return out
+
+
+def phase_profile(bench, dev, card: str, rounds: int = 20,
+                  scenario: str = "counter", groups: int = 10_000,
+                  peers: int = 3) -> dict:
+    """Where a round's time goes: ``rounds`` rounds of a bench cell's step
+    (the nemesis and its snapshot installs included) under
+    ``torch.profiler``: wall time, summed kernel time, the device's idle
+    share, kernel launches per round and the top kernels."""
     from torch.profiler import ProfilerActivity, profile
 
-    cfg, gen, state, deliver, submits = bench.counter_setup(device=dev)
-    G, P = state.term.shape
+    cell, state = bench.setup(scenario, groups, peers, rounds=rounds + 5,
+                              device=dev)
 
-    def run(state, n):
-        for _ in range(n):
-            state, _ = cons.step(state, submits, deliver,
-                                 cons.draw_timers(G, P, cfg, gen),
-                                 cons.draw_timers(G, P, cfg, gen), cfg)
+    def run(state, r0, n):
+        for r in range(r0, r0 + n):
+            state, _ = bench.step_cell(cell, state, r)
         return state
 
-    state = run(state, 5)
+    state = run(state, 0, 5)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        state = run(state, rounds)
+        state = run(state, 5, rounds)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / rounds
     evs = prof.key_averages()
@@ -454,16 +715,19 @@ def phase_profile(bench, cons, dev, card: str, rounds: int = 20) -> None:
     if busy_ms == 0:
         say("profile: the profiler saw no device time; idle share not "
             "measured")
-        return
+        return {}
     launches = sum(e.count for e in kern) / rounds
-    say(f"profile ({rounds} counter rounds, G=10000 P=3 L=64 S=16, on "
-        f"{card}, profiler on): wall {wall_ms:.3f} ms/round, kernel time "
-        f"{busy_ms:.3f} ms/round, device idle share "
+    L = state.log_term.shape[-1]
+    say(f"profile ({rounds} {scenario} rounds, G={groups} P={peers} L={L} "
+        f"S=16, on {card}, profiler on): wall {wall_ms:.3f} ms/round, "
+        f"kernel time {busy_ms:.3f} ms/round, device idle share "
         f"{1 - busy_ms / wall_ms:.4f}, {launches:.1f} kernel launches/round")
     for e in sorted(kern, key=lambda e: e.self_device_time_total,
                     reverse=True)[:8]:
         say(f"profile:   {e.self_device_time_total / 1e3 / rounds:.4f} "
             f"ms/round  x{e.count // rounds}  {e.key[:90]}")
+    return {"wall_ms": wall_ms, "kernel_ms": busy_ms,
+            "idle_share": 1 - busy_ms / wall_ms, "launches": launches}
 
 
 def main() -> int:
@@ -477,17 +741,39 @@ def main() -> int:
     from copycat_tpu_torch.ops import consensus as cons
     from copycat_tpu_torch.ops import kernels
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     card = card_info()
+    ks = bench.KERNELS
     say(card)
     say(f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)}")
     say(f"build: kernel libraries built in {phase_build(kernels):.1f}s")
     errs = phase_kernel(kernels, cases, dev)
-    phase_path(cons, convert, ap, bench.KERNELS, dev)
-    launches = phase_serve(RaftGroups, ap, bench.KERNELS)
+    S = 16
+    counter_ops = np.array([ap.OP_LONG_ADD] * 6 + [
+        ap.OP_VALUE_SET, ap.OP_VALUE_GET, ap.OP_VALUE_CAS, ap.OP_MAP_PUT],
+        np.int32)
+    phase_path(cons, convert, ks, dev, "path", 3, 64, 50, cons.Config(
+        append_window=S, applies_per_round=S,
+        resource=ap.ResourceConfig.counters_only()), counter_ops)
+    all_ops = np.array(sorted({v for k, v in vars(ap).items()
+                               if k.startswith("OP_")}), np.int32)
+    phase_path(cons, convert, ks, dev, "mixed path", 5, 32, 40, cons.Config(
+        append_window=S, applies_per_round=S,
+        pool_budgets=(4, 6, 4, 6, 4, 4, 4, 4)), all_ops)
+    launches = {"counter_serve": phase_serve(RaftGroups, cons, ap, ks),
+                "pool_serve": phase_pool_serve(RaftGroups, ap, ks)}
     _, timing = phase_bench(bench, cons, kernels, dev, card)
-    phase_profile(bench, cons, dev, card)
+    phase_profile(bench, dev, card)
+    mixed, mixed_timing = phase_mixed_bench(bench, cons, ap, kernels, dev,
+                                            card)
+    launches["mixed_bench"] = mixed.pop("launches")
+    phase_profile(bench, dev, card, **MIXED)
+    phase_short_benches(bench, card)
+    phase_profile(bench, dev, card, scenario="map")
+    say(f"chip_smoke: every phase passed in "
+        f"{time.perf_counter() - t_start:.1f}s")
     sources = {"kth_largest": "kth_largest.cu",
                "admit_submits": "quorum_phase.cu",
                "ack_commit": "quorum_phase.cu"}
@@ -496,9 +782,13 @@ def main() -> int:
         "route": "cuda",
         "source": f"copycat_tpu_torch/csrc/{src}",
         "replaces": "copycat_tpu/ops/pallas_kernels.py:69",
-        "launches": launches[name],
+        "launches": launches["counter_serve"][name],
+        "launches_pool_serve": launches["pool_serve"][name],
+        "launches_mixed_bench": launches["mixed_bench"][name],
+        "launches_per_mixed_round": mixed["launches_per_round"][name],
         "max_abs_err": errs[name],
         **timing[name],
+        "mixed_shape": mixed_timing.get(name),
     } for name, src in sources.items()]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

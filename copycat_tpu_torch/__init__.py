@@ -10,11 +10,12 @@ against.
 - ``ops/kernels.py`` — the quorum kernels (the k-th-largest tally, and
   the fused phase-1 admission and phase-3 commit of ``step``) and their
   plain torch versions;
-- ``ops/apply.py`` — the counter slice of the resource apply kernels;
+- ``ops/apply.py`` — the resource apply kernels of every pool, one entry
+  at a time (``apply_entry``) or folded per pool (``apply_window``);
 - ``ops/consensus.py`` — one synchronous Raft round over every group;
 - ``models/raft_groups.py`` — the host runtime (submit, step, harvest);
-- ``bench.py`` — the counter throughput bench
-  (``python -m copycat_tpu_torch.bench``);
+- ``bench.py`` — the throughput bench of the counter, map, lock and
+  mixed scenarios (``python -m copycat_tpu_torch.bench --scenario ...``);
 - ``convert.py`` — state conversion to and from numpy leaves;
 - ``cases.py`` — random inputs, with edge cases, for the fused kernels'
   tests.

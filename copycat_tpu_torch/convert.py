@@ -73,10 +73,13 @@ def outputs_to_torch(outputs: Any, device: torch.device | str) -> StepOutputs:
 
 
 def config_to_torch(config: Any) -> Config:
-    """This package's ``Config`` from the reference's (``use_pallas`` is
-    dropped: the device of the state chooses the tally)."""
+    """This package's ``Config`` that steps exactly as the reference's
+    does: ``use_pallas`` is dropped (the device of the state chooses the
+    tally) and ``ring_flow_control`` is off, as the reference has
+    none."""
     f = dict(_fields(config))
     f.pop("use_pallas", None)
+    f.setdefault("ring_flow_control", False)
     if "resource" in f:
         f["resource"] = ResourceConfig(**_fields(f["resource"]))
     return Config(**f)

@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..ops.apply import OP_CFG_ADD, OP_CFG_REMOVE, ResourceConfig
+from ..ops.apply import OP_CFG_ADD, OP_CFG_REMOVE
 from ..ops.consensus import (
     Config,
     RaftState,
@@ -59,8 +59,9 @@ class RaftGroups:
     ``device`` defaults to ``cuda`` and raises without a card; pass
     ``device="cpu"`` to run on the CPU. Election timers come from a
     ``torch.Generator`` on that device seeded with ``seed``. The default
-    config hosts counters only (``ResourceConfig.counters_only()``), the
-    pools this package runs.
+    config is the reference's ``Config()``, which hosts every resource
+    pool; lock grants, election hand-offs and topic messages arrive in
+    ``events``.
     """
 
     MAX_EVENTS_PER_GROUP = 4096
@@ -79,8 +80,7 @@ class RaftGroups:
         self.num_peers = num_peers
         self.log_slots = log_slots
         self.submit_slots = submit_slots
-        self.config = config or Config(
-            resource=ResourceConfig.counters_only())
+        self.config = config or Config()
         check_config(self.config)
         self.device = resolve_device(device)
         self.generator = torch.Generator(device=self.device)

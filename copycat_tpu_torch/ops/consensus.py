@@ -29,8 +29,26 @@ Differences from the reference, none of which changes a value:
 - ``step`` never synchronises with the host: it branches only on the
   static config and on shapes.
 
-``dynamic_membership``, ``monotone_tag_accept``, ``telemetry`` and
-``pool_budgets`` are not ported yet and raise ``NotImplementedError``.
+One difference changes values, and only where the reference's own state
+goes wrong: ``Config.ring_flow_control`` (on by default) never lets a
+lane's ring overwrite an entry it has not applied. A follower takes from
+AppendEntries only up to its applied index + L - 1, a leader admits
+submits only up to its backpressure floor + L - 1, and a lane stands for
+election (and wins) only while its ring has a free slot for the NoOp a
+winner appends. The reference
+copies up to ``prev + append_window`` whatever the follower has applied,
+so a follower whose apply lags its log by L or more (after a partition
+heals, or when a new leader sends from its own last index) overwrites
+committed entries in its ring before applying them and then applies the
+newer entries in their place — replicas at the same applied index then
+disagree. With the flag off, ``step`` is the reference's step bit for
+bit; ``convert.config_to_torch`` turns it off, so the differential tests
+hold that path to the reference.
+
+Every resource pool runs, and ``Config.pool_budgets`` selects the
+conflict-partitioned apply (``ops/apply.apply_window``).
+``dynamic_membership``, ``monotone_tag_accept`` and ``telemetry`` are not
+ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -40,9 +58,11 @@ from typing import Any, NamedTuple
 import torch
 
 from .apply import (
+    NUM_POOLS,
     ResourceConfig,
     ResourceState,
     apply_entry,
+    apply_window,
     drain_events,
     init_resources,
 )
@@ -117,7 +137,8 @@ class StepOutputs(NamedTuple):
 
 class Config(NamedTuple):
     """Static step configuration; fields and defaults as the reference's,
-    without ``use_pallas`` (the state's device picks the tally)."""
+    without ``use_pallas`` (the state's device picks the tally), plus
+    ``ring_flow_control`` (see the module docstring)."""
 
     append_window: int = 4    # entries per AppendEntries per round
     applies_per_round: int = 4
@@ -130,6 +151,7 @@ class Config(NamedTuple):
     lease_gated_accept: bool = True
     monotone_tag_accept: bool = False
     telemetry: bool = False
+    ring_flow_control: bool = True
 
 
 def check_config(config: Config) -> None:
@@ -138,15 +160,6 @@ def check_config(config: Config) -> None:
         if getattr(config, name):
             raise NotImplementedError(
                 f"Config({name}=True) is not ported to copycat_tpu_torch yet")
-    if config.pool_budgets is not None:
-        raise NotImplementedError(
-            "Config(pool_budgets=...) is not ported to copycat_tpu_torch yet")
-    unported = {name: n for name, n in config.resource._asdict().items()
-                if n and name != "event_slots"}
-    if unported:
-        raise NotImplementedError(
-            f"resource pools {unported} are not ported to copycat_tpu_torch "
-            "yet; use ResourceConfig.counters_only()")
 
 
 def draw_timers(num_groups: int, num_peers: int, config: Config,
@@ -360,8 +373,14 @@ def step(state: RaftState, submits: Submits, deliver: torch.Tensor,
     if config.lease_gated_accept:
         # last round's quorum-ack witness at the leader lane
         accept_ok = active & _peer_view(state.lease, lead)
-    admission = admit_submits(state.applied_index.contiguous(), lead,
-                               accept_ok, submits.valid, l_last, quorum, L)
+    applied = state.applied_index.contiguous()
+    if config.ring_flow_control:
+        # the floor counts from applied - 1: one entry fewer than the ring
+        admission = admit_submits(applied - 1, lead, accept_ok,
+                                  submits.valid, l_last, quorum, L)
+    else:
+        admission = admit_submits(applied, lead, accept_ok, submits.valid,
+                                  l_last, quorum, L)
     accepted = admission.accepted
     # Accepted slots land at distinct ring slots, so one scatter per log
     # array writes them all; rejected slots go to a spill column (slot L)
@@ -393,6 +412,10 @@ def step(state: RaftState, submits: Submits, deliver: torch.Tensor,
     recv = recv & can_serve
     prev_term = term_at_2d(l_log_term, l_last, prev)
     upto = torch.minimum(prev + E, l_last[:, None])
+    if config.ring_flow_control:
+        # a follower takes entries only up to its applied index + L - 1,
+        # so its ring never overwrites an entry it has not applied yet
+        upto = torch.minimum(upto, state.applied_index + (L - 1))
 
     msg_term = l_term[:, None]
     ok_term = recv & (msg_term >= state.term)
@@ -483,6 +506,11 @@ def step(state: RaftState, submits: Submits, deliver: torch.Tensor,
     is_ldr = is_ldr & ~ldr_down
     timer1 = torch.where(ldr_down, fresh, timer1)
     timeout = ~is_ldr & ~heartbeat & ~ldr_down & (timer1 <= 0)
+    if config.ring_flow_control:
+        # a lane stands for election only with a free ring slot for the
+        # NoOp it appends if it wins: its unapplied entries fill < L
+        room = last2 - state.applied_index < L
+        timeout = timeout & room
 
     term_e = torch.where(timeout, term1 + 1, term1)
     voted_e = torch.where(timeout, peer_ids[None, :], voted1)
@@ -513,6 +541,8 @@ def step(state: RaftState, submits: Submits, deliver: torch.Tensor,
     grant = elig & (peer_ids[None, :, None] == choice[:, None, :])
     votes = grant.sum(dim=2, dtype=i32)                             # [G,C]
     won = (role_v == CANDIDATE) & cand_mask & (votes >= quorum)
+    if config.ring_flow_control:
+        won = won & room
 
     role_f = torch.where(won, LEADER, role_v)
     hint_f = torch.where(won, peer_ids[None, :], hint1)
@@ -544,14 +574,25 @@ def step(state: RaftState, submits: Submits, deliver: torch.Tensor,
     b_w = ga(log_b2)
     c_w = ga(log_c2)
     resources = state.resources
-    res_cols = []
-    for i in range(A):
-        resources, r = apply_entry(resources, op_w[..., i], a_w[..., i],
-                                   b_w[..., i], c_w[..., i], idx_all[..., i],
-                                   time_w[..., i], do_all[..., i])
-        res_cols.append(r)
-    res_w = torch.stack(res_cols, dim=-1)                          # [G,P,A]
-    admitted = do_all
+    if config.pool_budgets is not None:
+        if len(config.pool_budgets) != NUM_POOLS:
+            raise ValueError(
+                f"pool_budgets needs {NUM_POOLS} entries (value, map, set, "
+                f"queue, lock, election, multimap, topic), got "
+                f"{config.pool_budgets!r}")
+        budgets = tuple(max(1, min(int(x), A)) for x in config.pool_budgets)
+        resources, res_w, admitted = apply_window(
+            resources, op_w, a_w, b_w, c_w, idx_all, time_w, do_all, budgets)
+    else:
+        res_cols = []
+        for i in range(A):
+            resources, r = apply_entry(resources, op_w[..., i], a_w[..., i],
+                                       b_w[..., i], c_w[..., i],
+                                       idx_all[..., i], time_w[..., i],
+                                       do_all[..., i])
+            res_cols.append(r)
+        res_w = torch.stack(res_cols, dim=-1)                      # [G,P,A]
+        admitted = do_all
     applied = state.applied_index + admitted.sum(dim=-1, dtype=i32)
 
     # Reporting lane: the lane with the highest applied_index after this

@@ -1,11 +1,14 @@
 """``copycat_tpu_torch/ops/apply.py`` against the JAX reference
-(``copycat_tpu/ops/apply.py``) under ``ResourceConfig.counters_only()``.
+(``copycat_tpu/ops/apply.py``) through ``apply_entry``.
 
 Every opcode of the catalog goes through ``apply_entry`` on both sides
-from the same random lanes — TTL'd values with ``now`` on both sides of
-the deadline, lock holders and election leaders set and free, lanes live
-and not — and every resource leaf and the result must be equal. The
-event ring (push and drain) is checked the same way with a nonzero ring.
+from the same random lanes, under ``ResourceConfig.counters_only()`` —
+TTL'd values with ``now`` on both sides of the deadline, lock holders and
+election leaders set and free, lanes live and not — and under the default
+``ResourceConfig()`` with every pool, from pools filled by a random run
+of the whole catalog. Every resource leaf and the result must be equal.
+The event ring (push and drain) is checked the same way with a nonzero
+ring. The pool kernels one by one are in ``test_torch_pools.py``.
 """
 
 import numpy as np
@@ -105,13 +108,39 @@ def test_drain_without_ring_returns_zeros():
     assert out[-1].dtype == torch.bool and not out[-1].any()
 
 
-@pytest.mark.parametrize("pool,field", [
-    ("map", "map_slots"), ("set", "set_slots"), ("queue", "queue_slots"),
-    ("lock wait", "wait_slots"), ("election listener", "listener_slots"),
-    ("multimap", "multimap_slots"), ("topic", "topic_slots")])
-def test_pools_with_slots_raise(pool, field):
-    rc = tap.ResourceConfig.counters_only()._replace(**{field: 2})
-    res = tap.init_resources(2, 3, rc, "cpu")
-    z = torch.zeros((2, 3), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match=pool):
-        tap.apply_entry(res, z, z, z, z, z, z, torch.ones_like(z, dtype=bool))
+_REF_APPLY_ENTRY = jax.jit(jap.apply_entry)
+
+
+def _filled_pools(rng, rounds=16):
+    """Default-size pools after ``rounds`` random entries from the whole
+    catalog (keys and ids small, so they collide; TTLs and lock timeouts
+    of every kind), applied by the reference; returns (state, now)."""
+    res = jap.init_resources(G, P, jap.ResourceConfig())
+    for r in range(rounds):
+        op = rng.choice(OPCODES, (G, P)).astype(np.int32)
+        a = rng.integers(0, 4, (G, P)).astype(np.int32)
+        b = rng.choice([-1, 0, 1, 2], (G, P)).astype(np.int32)
+        c = rng.integers(0, 4, (G, P)).astype(np.int32)
+        index = np.full((G, P), r + 1, np.int32)
+        now = np.full((G, P), r // 2, np.int32)
+        res, _ = _REF_APPLY_ENTRY(res, op, a, b, c, index, now,
+                                  rng.random((G, P)) < 0.9)
+    return res, np.full((G, P), rounds // 2, np.int32)
+
+
+@pytest.mark.parametrize("opcode", OPCODES)
+def test_apply_entry_all_pools_matches_reference(opcode):
+    rng = np.random.default_rng(1000 + opcode)
+    res, now = _filled_pools(rng)
+    a = rng.integers(0, 4, (G, P)).astype(np.int32)
+    b = rng.choice([-1, 0, 1, 2], (G, P)).astype(np.int32)
+    c = rng.integers(0, 4, (G, P)).astype(np.int32)
+    index = np.full((G, P), 99, np.int32)
+    live = rng.random((G, P)) < 0.8
+    op = np.full((G, P), opcode, np.int32)
+    want_res, want = jap.apply_entry(res, op, a, b, c, index, now, live)
+    t = [torch.from_numpy(x) for x in (op, a, b, c, index, now, live)]
+    got_res, got = tap.apply_entry(convert.resources_to_torch(res, "cpu"), *t)
+    _same(want_res, got_res, f"opcode {opcode}")
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))

@@ -6,7 +6,8 @@ election-timer draws (the reference's own draws for each round's key, fed
 to the port as inputs). Every ``RaftState`` and ``StepOutputs`` leaf must
 be equal — value and dtype — after every round. Covers random partitions,
 the lease gate on and off, compact submit leaves and snapshot install on
-stale lanes.
+stale lanes, with counters only and with every resource pool, with and
+without ``pool_budgets``.
 """
 
 from functools import partial
@@ -20,7 +21,7 @@ jax = pytest.importorskip("jax")
 from copycat_tpu.ops import apply as jap  # noqa: E402
 from copycat_tpu.ops import consensus as jcons  # noqa: E402
 
-from copycat_tpu_torch import convert  # noqa: E402
+from copycat_tpu_torch import bench, convert  # noqa: E402
 from copycat_tpu_torch.ops import apply as tap  # noqa: E402
 from copycat_tpu_torch.ops import consensus as tcons  # noqa: E402
 
@@ -35,6 +36,15 @@ _OPS = np.array([jap.OP_LONG_ADD] * 6 + [
     jap.OP_TOPIC_PUB], np.int32)
 
 
+# every opcode of the catalog, for the all-pool configs
+_ALL_OPS = np.array(sorted({v for k, v in vars(jap).items()
+                            if k.startswith("OP_")}), np.int32)
+# small pools, so the reference's CPU compile stays short
+_RC_SMALL = jap.ResourceConfig(map_slots=4, set_slots=3, queue_slots=3,
+                               wait_slots=3, listener_slots=3, event_slots=4,
+                               multimap_slots=4, topic_slots=3)
+
+
 def _jax_draws(key, cfg, P):
     """The two timer draws the reference's ``step`` makes from ``key``."""
     key_t, key_c = jax.random.split(key)
@@ -43,7 +53,7 @@ def _jax_draws(key, cfg, P):
     return torch.tensor(np.asarray(fresh)), torch.tensor(np.asarray(cand))
 
 
-def _submits(rng, r, S, compact):
+def _submits(rng, r, S, compact, ops=_OPS):
     valid = rng.random((G, S)) < 0.7
     if compact:
         # scalar leaves and the [G,1] tag column (consecutive per slot)
@@ -52,7 +62,7 @@ def _submits(rng, r, S, compact):
                          + r * S + 1),
                     valid=valid)
     return dict(
-        opcode=rng.choice(_OPS, (G, S)).astype(np.int32),
+        opcode=rng.choice(ops, (G, S)).astype(np.int32),
         a=rng.integers(-3, 4, (G, S)).astype(np.int32),
         b=rng.integers(-3, 4, (G, S)).astype(np.int32),
         c=rng.integers(0, 4, (G, S)).astype(np.int32),
@@ -85,13 +95,11 @@ def _assert_same(ref, port, what, r):
         np.testing.assert_array_equal(g, w, err_msg=f"{what}.{name} round {r}")
 
 
-@pytest.mark.parametrize("P,S,lease", [(3, 4, True), (5, 16, True),
-                                       (3, 16, False), (5, 4, False)])
-def test_step_matches_reference(P, S, lease):
-    jcfg = jcons.Config(append_window=S, applies_per_round=S,
-                        lease_gated_accept=lease,
-                        resource=jap.ResourceConfig.counters_only())
-    tcfg = convert.config_to_torch(jcfg)
+def _step_side_by_side(P, S, jcfg, ops=_OPS, flow_control=False):
+    """Step both engines ROUNDS rounds from one state; returns the
+    commands committed, the snapshot installs and the events drained."""
+    tcfg = convert.config_to_torch(jcfg)._replace(
+        ring_flow_control=flow_control)
     key = jax.random.PRNGKey(P * 100 + S)
     key, init_key = jax.random.split(key)
     jstate = jcons.init_state(G, P, L, init_key, jcfg)
@@ -99,10 +107,10 @@ def test_step_matches_reference(P, S, lease):
     jstep = jax.jit(partial(jcons.step, config=jcfg))
     jinstall = jax.jit(partial(jcons.install_snapshots, config=jcfg))
     rng = np.random.default_rng(P * 10 + S)
-    installs = committed = 0
+    installs = committed = events = 0
     for r in range(ROUNDS):
         key, k = jax.random.split(key)
-        sub = _submits(rng, r, S, compact=(r % 5 == 4))
+        sub = _submits(rng, r, S, compact=(r % 5 == 4), ops=ops)
         deliver = _deliver(rng, r, P)
         jstate, jout = jstep(jstate, jcons.Submits(**sub), deliver, k)
         fresh, cand = _jax_draws(k, jcfg, P)
@@ -112,6 +120,7 @@ def test_step_matches_reference(P, S, lease):
         _assert_same(jout, tout, "outputs", r)
         _assert_same(jstate, tstate, "state", r)
         committed += int(np.asarray(jout.out_valid).sum())
+        events += int(np.asarray(jout.ev_valid).sum())
         if np.asarray(jout.stale).any():
             jstate = jinstall(jstate, jout.stale, jout.leader)
             tstate = tcons.install_snapshots(tstate, tout.stale, tout.leader,
@@ -120,6 +129,121 @@ def test_step_matches_reference(P, S, lease):
             installs += 1
     assert committed > 0
     assert installs > 0, "the schedule never left a lane stale"
+    return committed, installs, events
+
+
+@pytest.mark.parametrize("P,S,lease", [(3, 4, True), (5, 16, True),
+                                       (3, 16, False), (5, 4, False)])
+def test_step_matches_reference(P, S, lease):
+    _step_side_by_side(P, S, jcons.Config(
+        append_window=S, applies_per_round=S, lease_gated_accept=lease,
+        resource=jap.ResourceConfig.counters_only()))
+
+
+@pytest.mark.parametrize("P,S,rc,budgets", [
+    (3, 8, _RC_SMALL, None),
+    (3, 8, _RC_SMALL, (2, 3, 1, 2, 2, 1, 2, 1)),
+    (5, 4, _RC_SMALL, None),
+    (5, 8, _RC_SMALL, (1,) * 8),
+    (5, 16, jap.ResourceConfig(), (4, 6, 4, 6, 4, 4, 4, 4)),
+], ids=["P3", "P3-budgets", "P5", "P5-tight", "P5-default-pools-mixed"])
+def test_step_all_pools_matches_reference(P, S, rc, budgets):
+    """Every pool and event source, the sequential apply and the
+    partitioned one, under partitions and snapshot installs."""
+    _, _, events = _step_side_by_side(P, S, jcons.Config(
+        append_window=S, applies_per_round=S, pool_budgets=budgets,
+        resource=rc), ops=_ALL_OPS)
+    assert events > 0, "no session event was drained"
+
+
+@pytest.mark.parametrize("budgets", [(4,) * 7, (4,) * 9])
+def test_pool_budgets_need_eight_entries(budgets):
+    cfg = tcons.Config(pool_budgets=budgets)
+    state = tcons.init_state(2, 3, 8, torch.full((2, 3), 5,
+                                                 dtype=torch.int32), cfg)
+    z = torch.zeros((2, 3), dtype=torch.int32)
+    with pytest.raises(ValueError, match="8 entries"):
+        tcons.step(state, tcons.make_submits(2, 4, "cpu"),
+                   tcons.full_delivery(2, 3, "cpu"), z + 5, z + 5, cfg)
+
+
+def test_ring_flow_control_changes_nothing_until_it_binds():
+    """Where no lane's log would run L - 1 entries ahead of its apply,
+    the default step (flow control on) is the reference's, leaf for
+    leaf."""
+    _step_side_by_side(3, 4, jcons.Config(
+        append_window=4, applies_per_round=4,
+        resource=jap.ResourceConfig.counters_only()), flow_control=True)
+
+
+def test_ring_flow_control_keeps_replicas_equal():
+    """The reference's AppendEntries lets a follower whose apply lags its
+    log by L or more overwrite committed entries before applying them, so
+    replicas at one applied index come to disagree. On the mixed cell
+    under the partition nemesis (G=16 × P=5, L=32) the reference — and
+    the port with ``ring_flow_control`` off, equal to it every round —
+    diverges; the port's default step keeps every replica pair at equal
+    applied index equal, and keeps committing."""
+    G_, P, L_, S = 16, 5, 32, 16
+    jcfg = jcons.Config(append_window=S, applies_per_round=S,
+                        pool_budgets=bench.pool_budgets_for("mixed", S),
+                        timer_min=2, timer_max=4,
+                        resource=jap.ResourceConfig(multimap_slots=0,
+                                                    topic_slots=0))
+    ref_mode = convert.config_to_torch(jcfg)
+    fixed = ref_mode._replace(ring_flow_control=True)
+    key = jax.random.PRNGKey(0)
+    key, init_key = jax.random.split(key)
+    jstate = jcons.init_state(G_, P, L_, init_key, jcfg)
+    states = {cfg: convert.state_to_torch(jstate, "cpu")
+              for cfg in (ref_mode, fixed)}
+    jstep = jax.jit(partial(jcons.step, config=jcfg))
+    jinstall = jax.jit(partial(jcons.install_snapshots, config=jcfg))
+    sub = bench.mixed_submits(G_, S, "cpu")
+    jsub = jcons.Submits(*(np.ascontiguousarray(x.numpy()) for x in sub))
+    delivers = bench.nemesis_delivers(40, G_, P, "cpu")
+    diverged = {cfg: 0 for cfg in states}
+    applied0 = states[fixed].applied_index.amax(dim=1)
+    for r in range(40):
+        key, k = jax.random.split(key)
+        jstate, jout = jstep(jstate, jsub, delivers[r].numpy(), k)
+        jstate = jinstall(jstate, jout.stale, jout.leader)
+        key_t, key_c = jax.random.split(k)
+        fresh, cand = (torch.tensor(np.asarray(jax.random.randint(
+            kk, (G_, P), jcfg.timer_min, jcfg.timer_max)))
+            for kk in (key_t, key_c))
+        for cfg, st in states.items():
+            st, out = tcons.step(st, sub, delivers[r], fresh, cand, cfg)
+            states[cfg] = tcons.install_snapshots(st, out.stale, out.leader,
+                                                  cfg)
+            diverged[cfg] = max(diverged[cfg],
+                                bench.diverged_lanes(states[cfg]))
+        _assert_same(jstate, states[ref_mode], "reference mode", r)
+    assert diverged[ref_mode] > 0, "the reference's fault did not show"
+    assert diverged[fixed] == 0
+    committed = states[fixed].applied_index.amax(dim=1) - applied0
+    assert (committed > 0).all()
+
+
+def test_a_lane_with_a_full_ring_does_not_stand_for_election():
+    """With flow control, a lane whose L ring slots all hold unapplied
+    entries does not campaign (a win would append a NoOp over one of
+    them); with one slot free it does. The reference's step campaigns
+    either way."""
+    L_ = 8
+    timer = torch.tensor([[1, 9, 9], [1, 9, 9]], dtype=torch.int32)
+    fixed = tcons.Config(resource=tap.ResourceConfig.counters_only())
+    st = tcons.init_state(2, 3, L_, timer, fixed)
+    last = torch.tensor([[L_, 0, 0], [L_ - 1, 0, 0]], dtype=torch.int32)
+    st = st._replace(last_index=last)
+    args = (st, tcons.make_submits(2, 4, "cpu"),
+            tcons.full_delivery(2, 3, "cpu"), timer + 5, timer + 5)
+    terms = {}
+    for flow in (True, False):
+        out, _ = tcons.step(*args, fixed._replace(ring_flow_control=flow))
+        terms[flow] = out.term[:, 0].tolist()
+    assert terms[True] == [0, 1]        # full ring: no campaign
+    assert terms[False] == [1, 1]
 
 
 def test_current_leader_ties_go_to_first_lane():
@@ -142,15 +266,14 @@ def test_unported_config_branches_raise(name):
         tcons.init_state(2, 3, 8, timer, cfg)
 
 
-def test_pool_budgets_and_pools_raise():
-    rc = convert.config_to_torch(jcons.Config()).resource
-    timer = torch.full((2, 3), 5, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="pool_budgets"):
-        tcons.init_state(2, 3, 8, timer, tcons.Config(
-            resource=rc._replace(**{f: 0 for f in rc._fields}),
-            pool_budgets=(1,) * 8))
-    with pytest.raises(NotImplementedError, match="map_slots"):
-        tcons.init_state(2, 3, 8, timer, tcons.Config(resource=rc))
+def test_every_pool_and_budgets_are_accepted():
+    """``check_config`` refuses only the three branches still to come."""
+    cfg = convert.config_to_torch(jcons.Config(pool_budgets=(1,) * 8))
+    assert cfg.resource == tcons.Config().resource
+    tcons.check_config(cfg)
+    state = tcons.init_state(2, 3, 8, torch.full((2, 3), 5,
+                                                 dtype=torch.int32), cfg)
+    assert state.resources.map_key.shape == (2, 3, 16)
 
 
 def test_convert_round_trips_both_ways():
@@ -173,4 +296,5 @@ def test_convert_round_trips_both_ways():
         **back["resources"])})
     _assert_same(jstate, rebuilt, "rebuilt", 0)
     assert convert.config_to_torch(cfg)._asdict() == {
-        k: v for k, v in cfg._asdict().items() if k != "use_pallas"}
+        **{k: v for k, v in cfg._asdict().items() if k != "use_pallas"},
+        "ring_flow_control": False}

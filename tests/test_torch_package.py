@@ -79,6 +79,58 @@ def test_bench_runs_on_the_cpu_when_asked():
     assert out["p50_commit_latency_rounds"] >= 1
 
 
+@pytest.mark.parametrize("scenario", ["map", "lock", "mixed"])
+def test_bench_scenarios_run_on_the_cpu(scenario, monkeypatch):
+    """Each pool scenario runs at a tiny G with its own pools and budgets;
+    under the ``mixed`` nemesis stale followers get snapshots installed,
+    and replicas at equal applied index agree."""
+    stale_lanes = []
+    real = bench.install_snapshots
+
+    def counting(state, stale, leader, config):
+        stale_lanes.append(int(stale.sum()))
+        return real(state, stale, leader, config)
+
+    monkeypatch.setattr(bench, "install_snapshots", counting)
+    out = bench.run_throughput(scenario, groups=12,
+                               peers=5 if scenario == "mixed" else 3,
+                               rounds=40, repeats=1, device="cpu")
+    assert out["value"] > 0 and out["p50_commit_latency_rounds"] >= 1
+    assert out["diverged_lanes"] == 0
+    assert out["launches_per_round"] == dict.fromkeys(bench.KERNELS, 0.0)
+    assert out["shape"]["pool_budgets"] == bench.pool_budgets_for(scenario,
+                                                                  16)
+    assert out["shape"]["log_slots"] == (32 if scenario == "mixed" else 64)
+    if scenario == "mixed":
+        assert out["shape"]["timers"] == [2, 4] and out["shape"]["nemesis"]
+        assert sum(stale_lanes) > 0, "the nemesis left no follower stale"
+    else:
+        assert stale_lanes == []
+
+
+def test_nemesis_schedule_is_the_reference_one():
+    """Period 20, the first half isolated, seed 1 — and the same victims
+    every repetition."""
+    v = bench.isolation_masks(45, 6, 5, 20, 1)
+    rng = np.random.default_rng(1)
+    for start in (0, 20, 40):
+        want = rng.integers(0, 5, 6, dtype=np.int32)
+        assert (v[start:start + 10] == want).all()
+        assert (v[start + 10:start + 20] == -1).all()
+    d = bench.victim_deliver(torch.tensor([1, -1]), 2, 3)
+    assert d[1].all() and not d[0, 1].any() and not d[0, :, 1].any()
+    assert d[0, 0, 2] and d[0, 2, 0]
+
+
+def test_bench_cli_needs_cuda(monkeypatch):
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        bench.main(["--scenario", "mixed", "--groups", "4", "--peers", "5",
+                    "--rounds", "1", "--repeats", "1"])
+    with pytest.raises(SystemExit):
+        bench.main(["--scenario", "election"])
+
+
 def test_chip_smoke_fails_without_a_card(tmp_path):
     """Run from a directory holding ``chip_smoke.py`` alone (it finds no
     card here, and would find no package there): non-zero exit, no

@@ -8,6 +8,12 @@ to the port, both engines must agree on every state leaf after every
 round; with the port's own generator they must still agree on every
 result. Exactly-once holds: each group's results are the prefix sums of
 its deltas in submission order, and its final value their total.
+
+A second stream drives every pool under the reference's default
+``Config()``: lock and election chains (whose hand-offs arrive as
+events), map, queue, set and topic ops. Both engines must give equal
+state every round, equal results and equal ``events``; the port's
+``RaftGroups()`` defaults to that config.
 """
 
 import numpy as np
@@ -31,9 +37,9 @@ class ReferenceDrawnGroups(RaftGroups):
     """The port's engine drawing its election timers exactly as the
     reference's ``RaftGroups`` does from the same seed."""
 
-    def __init__(self, seed=0):
+    def __init__(self, seed=0, jcfg=JCFG):
         super().__init__(G, P, log_slots=L, submit_slots=S,
-                         config=convert.config_to_torch(JCFG), seed=seed,
+                         config=convert.config_to_torch(jcfg), seed=seed,
                          device="cpu")
         self._key, init_key = jax.random.split(jax.random.PRNGKey(seed))
         self.state = self.state._replace(timer=self._randint(init_key))
@@ -52,6 +58,29 @@ class ReferenceDrawnGroups(RaftGroups):
 def _isolate(victims):
     hit = np.arange(P)[None, :] == victims[:, None]
     return ~(hit[:, :, None] | hit[:, None, :]) | (victims < 0)[:, None, None]
+
+
+def _partition(engines, r):
+    """The partition schedule: every group's leader isolated in rounds
+    5-12 and 20-27."""
+    if r in (5, 20):
+        mask = _isolate(np.asarray([engines[0].leader(g) for g in range(G)]))
+    elif r in (13, 28):
+        mask = np.ones((G, P, P), bool)
+    else:
+        return
+    engines[0].deliver = jax.numpy.asarray(mask)
+    for rg in engines[1:]:
+        rg.deliver = torch.from_numpy(mask)
+
+
+def _same_state(engines, r):
+    want = convert.flat_leaves(engines[0].state)
+    for rg in engines[1:]:
+        got = convert.flat_leaves(rg.state)
+        for name, w in want.items():
+            np.testing.assert_array_equal(got[name], w,
+                                          err_msg=f"{name} round {r}")
 
 
 def _drive(engines, compare_state):
@@ -77,26 +106,11 @@ def _drive(engines, compare_state):
             for t in tags[1:]:
                 assert list(t) == list(tags[0])
             submitted += list(zip(g.tolist(), d.tolist(), list(tags[0])))
-        if r in (5, 20):   # isolate every group's current leader
-            mask = _isolate(np.asarray([engines[0].leader(g)
-                                        for g in range(G)]))
-        elif r in (13, 28):
-            mask = np.ones((G, P, P), bool)
-        else:
-            mask = None
-        if mask is not None:
-            engines[0].deliver = jax.numpy.asarray(mask)
-            for rg in engines[1:]:
-                rg.deliver = torch.from_numpy(mask)
+        _partition(engines, r)
         for rg in engines:
             rg.step_round()
         if compare_state:
-            want = convert.flat_leaves(engines[0].state)
-            for rg in engines[1:]:
-                got = convert.flat_leaves(rg.state)
-                for name, w in want.items():
-                    np.testing.assert_array_equal(
-                        got[name], w, err_msg=f"{name} round {r}")
+            _same_state(engines, r)
     tags = [t for _, _, t in submitted]
     for rg in engines:
         rg.run_until(tags, max_rounds=300)
@@ -137,3 +151,65 @@ def test_membership_opcodes_are_refused():
         rg.submit(0, jap.OP_CFG_ADD, 1)
     with pytest.raises(ValueError, match="dynamic_membership"):
         rg.submit_batch([0], jap.OP_CFG_REMOVE, 1)
+
+
+# (opcode, a, b) chains, each submitted to one group in one go
+_CHAINS = (
+    # lock: 1 takes it, 2 queues forever, release(1) hands it to 2
+    # (EV_LOCK_GRANT), release(2) frees it
+    ((jap.OP_LOCK_ACQUIRE, 1, -1), (jap.OP_LOCK_ACQUIRE, 2, -1),
+     (jap.OP_LOCK_RELEASE, 1, 0), (jap.OP_LOCK_HOLDER, 0, 0),
+     (jap.OP_LOCK_RELEASE, 2, 0)),
+    # election: 4 wins, 5 listens, 4 resigns (EV_ELECT to 5 with the epoch)
+    ((jap.OP_ELECT_LISTEN, 4, 0), (jap.OP_ELECT_LISTEN, 5, 0),
+     (jap.OP_ELECT_RESIGN, 4, 0), (jap.OP_ELECT_LEADER, 0, 0),
+     (jap.OP_ELECT_RESIGN, 5, 0)),
+    ((jap.OP_MAP_PUT, 3, 30), (jap.OP_MAP_GET, 3, 0),
+     (jap.OP_MAP_PUT_IF_ABSENT, 3, 31), (jap.OP_MAP_REMOVE, 3, 0)),
+    ((jap.OP_Q_OFFER, 7, 0), (jap.OP_Q_OFFER, 8, 0), (jap.OP_Q_POLL, 0, 0),
+     (jap.OP_Q_SIZE, 0, 0)),
+    ((jap.OP_SET_ADD, 5, 0), (jap.OP_SET_CONTAINS, 5, 0),
+     (jap.OP_SET_REMOVE, 5, 0)),
+    ((jap.OP_TOPIC_LISTEN, 6, 0), (jap.OP_TOPIC_PUB, 77, 0),
+     (jap.OP_TOPIC_UNLISTEN, 6, 0)),
+    ((jap.OP_LONG_ADD, 2, 0), (jap.OP_VALUE_GET, 0, 0)),
+)
+
+
+def test_all_pool_stream_gives_the_same_results_and_events():
+    jcfg = JaxConfig()
+    ref = JaxRaftGroups(G, P, log_slots=L, submit_slots=S, config=jcfg)
+    port = ReferenceDrawnGroups(jcfg=jcfg)
+    assert RaftGroups(G, P, device="cpu").config == port.config._replace(
+        ring_flow_control=True)
+    engines = [ref, port]
+    for rg in engines:
+        rg.wait_for_leaders()
+    rng = np.random.default_rng(4)
+    tags = []
+    for r in range(40):
+        if r < 30:
+            for g in rng.choice(G, 3, replace=False).tolist():
+                chain = np.asarray(_CHAINS[rng.integers(len(_CHAINS))])
+                if r % 2:
+                    got = [list(rg.submit_batch(np.full(len(chain), g),
+                                                chain[:, 0], chain[:, 1],
+                                                chain[:, 2]))
+                           for rg in engines]
+                else:
+                    got = [[rg.submit(g, *map(int, op)) for op in chain]
+                           for rg in engines]
+                assert got[1] == got[0]
+                tags += got[0]
+        _partition(engines, r)
+        for rg in engines:
+            rg.step_round()
+        _same_state(engines, r)
+    for rg in engines:
+        rg.run_until(tags, max_rounds=300)
+        rg.run(4)      # followers apply the last commit; events drain
+    _same_state(engines, "end")
+    assert port.results == ref.results
+    assert port.events == ref.events
+    codes = {e[1] for evs in port.events.values() for e in evs}
+    assert codes == {jap.EV_LOCK_GRANT, jap.EV_ELECT, jap.EV_TOPIC_MSG}
