@@ -15,8 +15,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
    (G=100,000, P=5, S=16, L=32), on ``copycat_tpu_torch/cases.py``'s
    inputs (leaderless groups, commit candidate 0, candidates below the
    ring's window, stale leaders, duplicate matchIndex values, submits all
-   refused by backpressure); plus the floor-mod and first-index argmax the
-   step relies on;
+   refused by backpressure), each static and member-masked (random views
+   from one member to every lane, the leader outside its own view); plus
+   the floor-mod and first-index argmax the step relies on;
 3. counter path — the consensus step on the card (fused kernels) and on
    the CPU (plain versions) from one state and one set of timer draws,
    G=1,000, P=3, L=64, S=16, counters only, 50 rounds under random
@@ -26,32 +27,56 @@ Phases, each of which raises (and so exits non-zero) on failure:
    pool (``ResourceConfig()``), ``pool_budgets=(4,6,4,6,4,4,4,4)`` and
    opcodes drawn from the whole catalog, 40 rounds, one lane per group
    isolated in rounds 10-29 so that snapshots get installed;
-5. counter serve — ``RaftGroups(10_000, 3, log_slots=64,
+5. membership path — the same at G=10,000 × P=5 with 3 voters, dynamic
+   membership, the mixed pools and budgets, L=32, 40 rounds of counter
+   traffic beside a scripted churn (add lane 3, add lane 4, remove voter
+   1, remove the leader's own lane);
+6. counter serve — ``RaftGroups(10_000, 3, log_slots=64,
    submit_slots=16)`` with counters only elects leaders and answers a few
    hundred ``OP_LONG_ADD`` requests, each checked against its running
    sum; the fused kernels' launch counts, zeroed just before, must rise;
-6. pool serve — the same engine at the default config (every pool)
+7. pool serve — the same engine at the default config (every pool)
    answers map put/get, queue offer/offer/poll, the lock chain (acquire
    1; acquire 2 queued; release 1 hands the lock to 2 with an
    ``EV_LOCK_GRANT`` event) and the election chain (listen 4 wins; listen
    5 waits; resign 4 hands over to 5 with an ``EV_ELECT`` event carrying
    the epoch) on a few hundred groups, each answer and event checked
    against a plain Python model;
-7. counter bench — the counter bench at full size (G=10,000 × P=3 × L=64
-   × S=16), one launch of each fused kernel per round; each kernel's time
-   per call beside its plain version, a library call computing the same
-   function where there is one, and its bound — the fused kernels on the
-   inputs the bench's step gives them; then a short ``torch.profiler``
-   window of the same step: kernel time, the device's idle share and
-   launches per round;
-8. mixed bench — BASELINE config #5 at full width (G=100,000 × P=5 ×
-   L=32 × S=16) under the partition nemesis, budgets 4,6,4,6,4,4,4,4,
-   timers 2-4: committed ops/s, ms/round, p50/p99 commit latency, one
-   launch of each fused kernel per round, and replicas at equal applied
-   index holding equal resource leaves; the fused kernels timed on the
-   mixed step's inputs; the apply's time per round; a profiler window;
-9. short map and lock benches at G=10,000 × P=3 × L=64 with their
-   budgets, and a profiler window of the map round.
+8. membership serve — ``RaftGroups`` at BASELINE #5's width (G=100,000 ×
+   P=5, 3 voters, L=32, S=16, the mixed config and budgets, flow control
+   on): every group adds lanes 3 and 4, then removes lane 0, each change
+   one ``submit_batch`` for all groups beside a counter op per group;
+   exactly-once counters, every group voting with lanes {1, 2, 3, 4}, no
+   diverged replicas, one launch of each fused kernel a round; then the
+   member-masked kernels timed on its step's inputs, and a profiler
+   window of its rounds;
+9. engine extras at G=10,000 × P=5, mixed config: ``step_rounds(8)``
+   against eight ``step_round()`` calls on the same draws,
+   ``drive_vector`` against the per-group prefix sums, and a crashed lock
+   holder's session expiring so that its lock passes to the queued
+   waiter;
+10. counter bench — the counter bench at full size (G=10,000 × P=3 × L=64
+    × S=16), one launch of each fused kernel per round; each kernel's time
+    per call beside its plain version, a library call computing the same
+    function where there is one, and its bound — the fused kernels on the
+    inputs the bench's step gives them; then a short ``torch.profiler``
+    window of the same step: kernel time, the device's idle share and
+    launches per round;
+11. mixed bench — BASELINE config #5 at full width (G=100,000 × P=5 ×
+    L=32 × S=16) under the partition nemesis, budgets 4,6,4,6,4,4,4,4,
+    timers 2-4: committed ops/s, ms/round, p50/p99 commit latency, one
+    launch of each fused kernel per round, and replicas at equal applied
+    index holding equal resource leaves; the fused kernels timed on the
+    mixed step's inputs; the apply's time per round; a profiler window;
+12. short map and lock benches at G=10,000 × P=3 × L=64 with their
+    budgets, and a profiler window of the map round;
+13. query lane — the ``map_read`` cell (G=10,000 × P=3 × L=64, 16 puts
+    through the log and 16 gets through ``query_step`` per group and
+    round) at both read levels, every served get checked against the
+    value the puts wrote;
+14. elections — the ``election`` cell (G=1,000 × P=3, isolation nemesis
+    with period 15, seed 2, 200 rounds × 5), with no term of any group
+    led by two lanes.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a card it exits non-zero and
@@ -73,6 +98,8 @@ SCALAR_OPS_PER_S = 67e12        # H100 SXM 32-bit rate outside the tensor cores
 MIXED = dict(scenario="mixed", groups=100_000, peers=5)
 MIXED_ROUNDS, MIXED_REPEATS = 200, 5    # the reference's
 SHORT_ROUNDS, SHORT_REPEATS = 20, 2
+QUERY_ROUNDS, QUERY_REPEATS = 100, 3    # the reference runs 200 x 5
+ELECTION_ROUNDS, ELECTION_REPEATS = 200, 5
 
 
 def say(msg: str) -> None:
@@ -171,7 +198,8 @@ def phase_build(kernels) -> float:
 
 def phase_kernel(kernels, cases, dev) -> dict:
     rng = np.random.default_rng(0)
-    worst = {"kth_largest": 0, "admit_submits": 0, "ack_commit": 0}
+    worst = {"kth_largest": 0, "admit_submits": 0, "ack_commit": 0,
+             "admit_submits_masked": 0, "ack_commit_masked": 0}
     n = dict.fromkeys(worst, 0)
     fused = []
     for G in (10_000, 100_000, 1_001):
@@ -192,21 +220,33 @@ def phase_kernel(kernels, cases, dev) -> dict:
     for G, P, S, L in fused:
         quorum = P // 2 + 1
         where = f"G={G} P={P} S={S} L={L}"
-        a = on_card(cases.admit_case(rng, G, P, S, L), dev)
-        got = kernels.admit_submits_cuda(**a, quorum=quorum, L=L)
-        want = kernels.admit_submits_plain(**a, quorum=quorum, L=L)
-        torch.cuda.synchronize()
-        worst["admit_submits"] = max(worst["admit_submits"], max_err(
-            got, want, f"admit_submits at {where}"))
-        c = on_card(cases.ack_case(rng, G, P, L), dev)
-        c["l_log_term"] = widen_ring(c["l_log_term"])
-        got = kernels.ack_commit_cuda(**c, quorum=quorum)
-        want = kernels.ack_commit_plain(**c, quorum=quorum)
-        torch.cuda.synchronize()
-        worst["ack_commit"] = max(worst["ack_commit"], max_err(
-            got, want, f"ack_commit at {where}"))
-        n["admit_submits"] += 1
-        n["ack_commit"] += 1
+        a_np = cases.admit_case(rng, G, P, S, L)
+        c_np = cases.ack_case(rng, G, P, L)
+        # the static path, then the member-masked one on random views
+        # (one member up to every lane, the leader outside its own view)
+        for views, tag in ((None, ""), ("views", "_masked")):
+            a = on_card(a_np, dev)
+            c = on_card(c_np, dev)
+            c["l_log_term"] = widen_ring(c["l_log_term"])
+            if views:
+                a["view"] = torch.from_numpy(cases.member_views(
+                    rng, a_np["lead"], P)).to(dev)
+                c["view"] = torch.from_numpy(cases.member_views(
+                    rng, c_np["lead"], P)).to(dev)
+            got = kernels.admit_submits_cuda(**a, quorum=quorum, L=L)
+            want = kernels.admit_submits_plain(**a, quorum=quorum, L=L)
+            torch.cuda.synchronize()
+            name = "admit_submits" + tag
+            worst[name] = max(worst[name], max_err(
+                got, want, f"{name} at {where}"))
+            got = kernels.ack_commit_cuda(**c, quorum=quorum)
+            want = kernels.ack_commit_plain(**c, quorum=quorum)
+            torch.cuda.synchronize()
+            name = "ack_commit" + tag
+            worst[name] = max(worst[name], max_err(
+                got, want, f"{name} at {where}"))
+            n["admit_submits" + tag] += 1
+            n["ack_commit" + tag] += 1
     for name, cnt in n.items():
         say(f"kernel: {name}: {cnt} cases equal to the plain version bit "
             f"for bit (max |err| {worst[name]})")
@@ -231,11 +271,15 @@ def counts(kernels_by_name: dict) -> dict:
 
 
 def phase_path(cons, convert, ks: dict, dev, name: str, P: int, L: int,
-               rounds: int, cfg, ops: np.ndarray) -> None:
+               rounds: int, cfg, ops: np.ndarray, G: int = 1_000,
+               members=None, churn=None) -> dict:
     """The CUDA step against the CPU step from one state and one set of
-    timer draws, G=1,000, S=16, submits drawn from ``ops``; one lane per
-    group isolated in rounds 10-29, random message loss otherwise."""
-    G, S = 1_000, cfg.append_window
+    timer draws, S=16, submits drawn from ``ops``; one lane per group
+    isolated in rounds 10-29, random message loss otherwise. ``members``
+    starts the groups with that voter set; ``churn(r, lead, sub)`` writes
+    round r's config submits into ``sub`` (``lead``: the last round's
+    leaders)."""
+    S = cfg.append_window
     rng = np.random.default_rng(1)
 
     def draws():
@@ -243,10 +287,12 @@ def phase_path(cons, convert, ks: dict, dev, name: str, P: int, L: int,
                             ).astype(np.int32)
 
     timer = torch.from_numpy(draws())
-    cpu = cons.init_state(G, P, L, timer, cfg)
-    gpu = cons.init_state(G, P, L, timer.to(dev), cfg)
+    cpu = cons.init_state(G, P, L, timer, cfg, members=members)
+    gpu = cons.init_state(G, P, L, timer.to(dev), cfg, members=members)
+    member0 = cpu.member.clone()
     victims = rng.integers(0, P, G)
-    installs = events = 0
+    lead = np.full(G, -1)
+    installs = events = refused = 0
     zero_counts(ks)
     for r in range(rounds):
         sub = dict(opcode=rng.choice(ops, (G, S)).astype(np.int32),
@@ -255,6 +301,8 @@ def phase_path(cons, convert, ks: dict, dev, name: str, P: int, L: int,
                    c=rng.integers(0, 4, (G, S)).astype(np.int32),
                    tag=rng.integers(1, 1 << 30, (G, S)).astype(np.int32),
                    valid=rng.random((G, S)) < 0.8)
+        if churn is not None:
+            churn(r, lead, sub)
         if 10 <= r < 30:   # one lane per group cut off: laggards go stale
             hit = np.arange(P)[None, :] == victims[:, None]
             deliver = ~(hit[:, :, None] | hit[:, None, :])
@@ -279,6 +327,8 @@ def phase_path(cons, convert, ks: dict, dev, name: str, P: int, L: int,
                     raise AssertionError(
                         f"{name}: {what}.{leaf} differs at round {r}")
         events += int(out_c.ev_valid.sum())
+        refused += int(out_c.refused.sum())
+        lead = out_c.leader.numpy()
         if out_c.stale.any():
             cpu = cons.install_snapshots(cpu, out_c.stale, out_c.leader, cfg)
             gpu = cons.install_snapshots(gpu, out_g.stale, out_g.leader, cfg)
@@ -291,11 +341,31 @@ def phase_path(cons, convert, ks: dict, dev, name: str, P: int, L: int,
                              "fused kernel a round")
     if not installs:
         raise AssertionError(f"{name}: no snapshot was installed")
+    changed = float((cpu.member != member0).any(dim=1).float().mean())
     say(f"{name}: CUDA step == CPU step on every leaf for {rounds} rounds "
         f"(G={G} P={P} L={L} S={S}, pools {dict(cfg.resource._asdict())}, "
-        f"pool_budgets {cfg.pool_budgets}, random partitions, {installs} "
-        f"snapshot installs, {events} session events drained); card "
-        f"rounds launched {launched}")
+        f"pool_budgets {cfg.pool_budgets}, dynamic membership "
+        f"{cfg.dynamic_membership}, random partitions, {installs} "
+        f"snapshot installs, {events} session events drained, {refused} "
+        f"config submits refused, voter sets changed in {changed:.3f} of "
+        f"the groups); card rounds launched {launched}")
+    return {"changed": changed, "launches": launched}
+
+
+def membership_churn(ap, P: int):
+    """Config submits in slot 0 of every group: add lane 3 (rounds 0-9),
+    add lane 4 (10-19), remove original voter 1 (20-29), remove the
+    leader's own lane (30-39). A submit while a change is in flight is
+    rejected; one that is already in effect appends a no-op change."""
+    plan = [(ap.OP_CFG_ADD, 3), (ap.OP_CFG_ADD, 4), (ap.OP_CFG_REMOVE, 1),
+            (ap.OP_CFG_REMOVE, None)]
+
+    def churn(r, lead, sub):
+        kind, lane = plan[min(r // 10, len(plan) - 1)]
+        sub["opcode"][:, 0] = kind
+        sub["a"][:, 0] = np.maximum(lead, 0) if lane is None else lane
+        sub["valid"][:, 0] = True
+    return churn
 
 
 def phase_serve(RaftGroups, cons, ap, ks: dict) -> dict:
@@ -492,6 +562,252 @@ def phase_pool_serve(RaftGroups, ap, ks: dict) -> dict:
     return launches
 
 
+def phase_membership_serve(RaftGroups, bench, cons, ap, ks: dict,
+                           G: int = 100_000) -> dict:
+    """BASELINE #5's width with dynamic membership: every group of G=100,000
+    × P=5 (3 voters, L=32, S=16, the mixed config and budgets, flow control
+    on) adds lanes 3 and 4, then removes lane 0, one change at a time, each
+    submitted for every group as one ``submit_batch`` beside a counter op
+    per group. Checks: every counter result is its group's prefix sum
+    (exactly once), the most-applied lane holds its group's total, every group
+    votes with lanes {1, 2, 3, 4}, replicas at equal applied index agree,
+    and each fused kernel launched once a round."""
+    P = 5
+    cfg = bench.scenario_config("mixed", 16)._replace(
+        dynamic_membership=True, ring_flow_control=True)
+    zero_counts(ks)
+    t0 = time.perf_counter()
+    rg = RaftGroups(G, P, log_slots=32, submit_slots=16, config=cfg,
+                    voters=3)
+    rg.wait_for_leaders()
+    rng = np.random.default_rng(6)
+    groups = np.arange(G)
+    deltas, tags, stages = [], [], []
+    for kind, lane in ((ap.OP_CFG_ADD, 3), (ap.OP_CFG_ADD, 4),
+                       (ap.OP_CFG_REMOVE, 0)):
+        r0, s0 = rg.rounds, time.perf_counter()
+        d = rng.integers(1, 100, G)
+        both = rg.submit_batch(np.concatenate([groups, groups]),
+                               np.repeat([kind, ap.OP_LONG_ADD], G),
+                               np.concatenate([np.full(G, lane), d]))
+        rg.run_until(both.tolist(), max_rounds=300)
+        failed = sum(rg.results[t] == ap.FAIL for t in both[:G].tolist())
+        if failed:
+            raise AssertionError(f"membership serve: {failed} config "
+                                 "changes failed")
+        deltas.append(d)
+        tags.append(both[G:])
+        stages.append((rg.rounds - r0, time.perf_counter() - s0))
+    rg.run(3)   # followers apply the last commit
+    launches = counts(ks)
+    dt = time.perf_counter() - t0
+    got = np.stack([[rg.results[t] for t in tg.tolist()] for tg in tags])
+    want = np.cumsum(np.stack(deltas), axis=0)
+    if not np.array_equal(got, want):
+        bad = int((got != want).sum())
+        raise AssertionError(f"membership serve: {bad} counter results are "
+                             "not their group's prefix sum")
+    st = rg.state
+    top = st.applied_index.argmax(dim=1)
+    values = st.resources.value[torch.arange(G, device=top.device), top]
+    if not np.array_equal(values.cpu().numpy(), want[-1]):
+        raise AssertionError("membership serve: the most-applied lane of a "
+                             "group does not hold its total")
+    masks = rg.config_masks()
+    wrong = int((masks != 0b11110).sum())
+    if wrong:
+        raise AssertionError(f"membership serve: {wrong} groups do not vote "
+                             "with lanes {1, 2, 3, 4}")
+    diverged = bench.diverged_lanes(rg.state)
+    if diverged:
+        raise AssertionError(f"membership serve: {diverged} replica pairs "
+                             "at equal applied index differ")
+    if launches != {"kth_largest": 0, "admit_submits": rg.rounds,
+                    "ack_commit": rg.rounds}:
+        raise AssertionError(f"membership serve: kernel launches {launches} "
+                             f"in {rg.rounds} rounds")
+    say(f"membership serve: G={G} P={P} (3 voters) L=32 S=16, mixed config, "
+        f"flow control on: add lane 3, add lane 4, remove lane 0 with a "
+        f"counter op each, rounds (and seconds) per change "
+        f"{[(r, round(t, 3)) for r, t in stages]}; {rg.rounds} rounds in "
+        f"{dt:.1f}s ({dt / rg.rounds * 1e3:.3f} ms/round, election and host "
+        f"bookkeeping included); exactly-once counters, every group votes "
+        f"with lanes [1, 2, 3, 4], 0 diverged replica pairs; kernel launches "
+        f"{launches} (one of each fused kernel a round)")
+    return {"rg": rg, "launches": launches, "rounds": rg.rounds,
+            "ms_per_round": dt / rg.rounds * 1e3}
+
+
+def phase_query_lane(bench, card: str, rounds: int, repeats: int) -> dict:
+    """The map_read cell at G=10,000 × P=3 at both read levels: every
+    served get reads the value the puts wrote."""
+    out = {}
+    for level in bench.READ_LEVELS:
+        zero_counts(bench.KERNELS)
+        r = bench.run_map_read(level, rounds=rounds, repeats=repeats)
+        if r["wrong_reads"] or not r["served_reads"]:
+            raise AssertionError(f"map_read {level}: {r['wrong_reads']} "
+                                 f"wrong of {r['served_reads']} served reads")
+        if r["launches_per_round"] != {"kth_largest": 0, "admit_submits": 1,
+                                       "ack_commit": 1}:
+            raise AssertionError(f"map_read {level}: kernel launches per "
+                                 f"round {r['launches_per_round']}")
+        say(f"map_read {level}: {r['value']:.1f} ops/s (reps "
+            f"{r['reps_min']:.1f}..{r['reps_max']:.1f}), "
+            f"{r['ms_per_round']:.4f} ms/round, {r['served_reads']} reads "
+            f"served in the best rep, 0 wrong, at G={r['shape']['groups']} "
+            f"P={r['shape']['peers']} L={r['shape']['log_slots']}, {rounds} "
+            f"rounds x {repeats} reps, on {card}")
+        say(f"map_read {level}: " + json.dumps(r))
+        out[level] = r
+    return out
+
+
+def phase_elections(bench, card: str, rounds: int, repeats: int) -> dict:
+    zero_counts(bench.KERNELS)
+    r = bench.run_election(rounds=rounds, repeats=repeats)
+    if r["two_leaders_in_a_term"] or not r["value"]:
+        raise AssertionError(f"election: {r['two_leaders_in_a_term']} "
+                             "leader pairs in one term")
+    say(f"election: {r['value']:.1f} elections/s (reps "
+        f"{r['reps_min']:.1f}..{r['reps_max']:.1f}), "
+        f"{r['ms_per_round']:.4f} ms/round at G={r['shape']['groups']} "
+        f"P={r['shape']['peers']}, {rounds} rounds x {repeats} reps, no "
+        f"term with two leaders in any group, on {card}; kernel launches "
+        f"per round {r['launches_per_round']}")
+    say("election: " + json.dumps(r))
+    return r
+
+
+def _drive(rg, tags, alive=(), max_rounds: int = 200) -> None:
+    """Step until ``tags`` resolve, keeping the ``alive`` sessions alive."""
+    for _ in range(max_rounds):
+        if all(t in rg.results for t in tags):
+            return
+        rg.step_round()
+        for s in alive:
+            s.keep_alive()
+    raise TimeoutError(f"{len(tags)} ops did not resolve")
+
+
+def phase_engine_extras(RaftGroups, bench, convert, ap,
+                        G: int = 10_000) -> dict:
+    """``step_rounds(8)`` against eight ``step_round()`` calls on the same
+    draws, ``drive_vector`` against the per-group prefix sums, and a
+    crashed lock holder's lock passing to the next waiter, at G=10,000 ×
+    P=5 with the mixed config."""
+    P = 5
+    cfg = bench.scenario_config("mixed", 16)
+    t0 = time.perf_counter()
+    a, b = (RaftGroups(G, P, log_slots=32, submit_slots=16, config=cfg,
+                       seed=3) for _ in range(2))
+    rng = np.random.default_rng(7)
+    rows = np.repeat(np.arange(G), rng.integers(0, 3, G))
+    d = rng.integers(1, 9, rows.size)
+    for rg in (a, b):
+        rg.wait_for_leaders()
+        rg.run(3)
+        rg.submit_batch(rows, ap.OP_LONG_ADD, d)
+    a.step_rounds(8)
+    for _ in range(8):
+        out = b.step_round()
+        if b.rounds == a.rounds - 7 and not out.accepted.sum() == rows.size:
+            raise AssertionError("step_rounds: round 0 rejected a submit")
+    want, got = convert.flat_leaves(b.state), convert.flat_leaves(a.state)
+    bad = [k for k in want if not np.array_equal(want[k], got[k])]
+    if bad or a.results != b.results or a.rounds != b.rounds:
+        raise AssertionError(f"step_rounds(8) != 8 x step_round(): {bad[:5]}")
+    say(f"step_rounds: step_rounds(8) equals eight step_round() calls on "
+        f"every state leaf and every result ({len(a.results)} results)")
+
+    base = a.state.resources.value.amax(dim=1).cpu().numpy()
+    rows = np.repeat(np.arange(G), rng.integers(0, 17, G))
+    d = rng.integers(1, 9, rows.size)
+    z = np.zeros_like(rows)
+    res = a.drive_vector(rows, z + ap.OP_LONG_ADD, d, z, z)
+    start = np.searchsorted(rows, rows)          # rows are grouped
+    csum = np.cumsum(d)
+    want = base[rows] + csum - (csum - d)[start]
+    if res is None or not np.array_equal(res, want):
+        raise AssertionError("drive_vector: results are not the per-group "
+                             "prefix sums")
+    say(f"drive_vector: {rows.size} rows over {G} groups equal the per-group "
+        f"prefix sums")
+
+    reg = a.sessions
+    reg.timeout_rounds = 12
+    s1, s2 = reg.open_session(), reg.open_session()
+    locked = list(range(0, G, 997))
+    for g in locked:
+        s1.bind(g, "lock")
+        s2.bind(g, "lock")
+    t1 = [a.submit(g, ap.OP_LOCK_ACQUIRE, s1.id, -1) for g in locked]
+    _drive(a, t1, (s1, s2))
+    t2 = [a.submit(g, ap.OP_LOCK_ACQUIRE, s2.id, -1) for g in locked]
+    _drive(a, t2, (s1, s2))
+    if [a.results[t] for t in t1] != [1] * len(locked) \
+            or [a.results[t] for t in t2] != [2] * len(locked):
+        raise AssertionError("sessions: acquire answers "
+                             f"{[a.results[t] for t in t1 + t2]}")
+    for _ in range(60):                 # s1 crashes: no more keep-alives
+        a.step_round()
+        s2.keep_alive()
+        granted = [g for g in locked if any(
+            e[1] == ap.EV_LOCK_GRANT and e[2] == s2.id
+            for e in a.events.get(g, []))]
+        if s1.expired and len(granted) == len(locked):
+            break
+    holders = [a.serve_query(g, ap.OP_LOCK_HOLDER) for g in locked]
+    if not s1.expired or holders != [s2.id] * len(locked):
+        raise AssertionError(f"sessions: expired {s1.expired}, holders "
+                             f"{holders}")
+    say(f"sessions: a crashed holder's lock passed to the queued waiter in "
+        f"{len(locked)} groups (grant events and holder registers agree); "
+        f"the engine phase took {time.perf_counter() - t0:.1f}s")
+    return {"rounds": a.rounds}
+
+
+def masked_fns(kernels, rg) -> dict:
+    """(kernel, plain, library, bound) of each fused kernel, masked, on the
+    inputs one step of the membership engine ``rg`` gives it."""
+    from copycat_tpu_torch.ops import consensus as cons
+    seen = record_inputs(cons, ("admit_submits", "ack_commit"),
+                         rg.step_round)
+    a_args, a_kw = seen["admit_submits"]
+    c_args, c_kw = seen["ack_commit"]
+    view = a_args[7]
+    if view is None or c_kw["view"] is None:
+        raise AssertionError("the membership step called the static kernels")
+    (G, P), S = a_args[0].shape, a_args[3].shape[1]
+    L = c_kw["l_log_term"].shape[1]
+    out = kernels.ack_commit_plain(*c_args, **c_kw)
+    l_last, lead = c_kw["l_last"], c_kw["lead"]
+    self_lane = torch.arange(P, device=lead.device)[None, :] == lead[:, None]
+    cand = kernels.kth_largest_masked(
+        torch.where(self_lane, l_last[:, None], out.l_match),
+        *kernels.leader_members(c_kw["view"], lead))
+    n_live = int(((cand >= 1) & (cand <= l_last) & (cand > l_last - L)).sum())
+    # as the static kernels' bounds, plus the leader lane's 4-byte view
+    # word a group and its popcount and member masking
+    fns = {
+        "admit_submits": (
+            lambda: kernels.admit_submits_cuda(*a_args, **a_kw),
+            lambda: kernels.admit_submits_plain(*a_args, **a_kw), None,
+            bounds(G * (4 * P + 4 + 1 + S + 4 + 4)
+                   + G * (S + 4 * S + 8 * S + 4),
+                   G * (2 * P * P + 8 * S + 2 * P))),
+        "ack_commit": (
+            lambda: kernels.ack_commit_cuda(*c_args, **c_kw),
+            lambda: kernels.ack_commit_plain(*c_args, **c_kw), None,
+            bounds(G * (6 * P + 24 * P + 17 + 4) + 4 * n_live
+                   + G * (8 * P + 10),
+                   G * (2 * P * P + 24 * P + 2 * P)))}
+    for name, (kern, plain, _, _) in fns.items():
+        max_err(kern(), plain(), f"{name} (masked) on the membership step's "
+                "inputs")
+    return fns
+
+
 def bounds(nbytes: int, ops: int) -> dict:
     """The least time of a call: bytes over the memory rate or integer
     operations over the 32-bit rate, whichever is larger."""
@@ -501,11 +817,10 @@ def bounds(nbytes: int, ops: int) -> dict:
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")
 
 
-def step_inputs(bench, cons, dev, names, **cell) -> dict:
-    """The arguments a bench cell's step hands each function of ``names``
-    (module attributes of the consensus step), recorded in the third round
-    after every leader is elected."""
-    c, state = bench.setup(rounds=3, device=dev, **cell)
+def record_inputs(cons, names, run) -> dict:
+    """The arguments the consensus step hands each function of ``names``
+    (module attributes of ``cons``) in its last call while ``run()``
+    runs."""
     seen = {}
     real = {name: getattr(cons, name) for name in names}
 
@@ -518,12 +833,24 @@ def step_inputs(bench, cons, dev, names, **cell) -> dict:
     for name in names:
         setattr(cons, name, recorder(name))
     try:
-        for r in range(3):
-            state, _ = bench.step_cell(c, state, r)
+        run()
     finally:
         for name, fn in real.items():
             setattr(cons, name, fn)
     return seen
+
+
+def step_inputs(bench, cons, dev, names, **cell) -> dict:
+    """The arguments a bench cell's step hands each function of ``names``,
+    recorded in the third round after every leader is elected."""
+    c, state = bench.setup(rounds=3, device=dev, **cell)
+
+    def run():
+        st = state
+        for r in range(3):
+            st, _ = bench.step_cell(c, st, r)
+
+    return record_inputs(cons, names, run)
 
 
 def fused_fns(bench, cons, kernels, dev, **cell) -> dict:
@@ -689,22 +1016,30 @@ def phase_profile(bench, dev, card: str, rounds: int = 20,
     (the nemesis and its snapshot installs included) under
     ``torch.profiler``: wall time, summed kernel time, the device's idle
     share, kernel launches per round and the top kernels."""
-    from torch.profiler import ProfilerActivity, profile
-
     cell, state = bench.setup(scenario, groups, peers, rounds=rounds + 5,
                               device=dev)
+    box = {"state": state}
 
-    def run(state, r0, n):
+    def run(r0, n):
         for r in range(r0, r0 + n):
-            state, _ = bench.step_cell(cell, state, r)
-        return state
+            box["state"], _ = bench.step_cell(cell, box["state"], r)
 
-    state = run(state, 0, 5)
+    L = state.log_term.shape[-1]
+    return profile_rounds(run, rounds, f"{rounds} {scenario} rounds, "
+                          f"G={groups} P={peers} L={L} S=16", card)
+
+
+def profile_rounds(run, rounds: int, what: str, card: str) -> dict:
+    """``run(r0, n)`` steps rounds r0..r0+n-1: five warm-up rounds, then
+    ``rounds`` under ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    run(0, 5)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        state = run(state, 5, rounds)
+        run(5, rounds)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / rounds
     evs = prof.key_averages()
@@ -717,17 +1052,31 @@ def phase_profile(bench, dev, card: str, rounds: int = 20,
             "measured")
         return {}
     launches = sum(e.count for e in kern) / rounds
-    L = state.log_term.shape[-1]
-    say(f"profile ({rounds} {scenario} rounds, G={groups} P={peers} L={L} "
-        f"S=16, on {card}, profiler on): wall {wall_ms:.3f} ms/round, "
-        f"kernel time {busy_ms:.3f} ms/round, device idle share "
-        f"{1 - busy_ms / wall_ms:.4f}, {launches:.1f} kernel launches/round")
+    say(f"profile ({what}, on {card}, profiler on): wall "
+        f"{wall_ms:.3f} ms/round, kernel time {busy_ms:.3f} ms/round, device "
+        f"idle share {1 - busy_ms / wall_ms:.4f}, {launches:.1f} kernel "
+        f"launches/round")
     for e in sorted(kern, key=lambda e: e.self_device_time_total,
                     reverse=True)[:8]:
         say(f"profile:   {e.self_device_time_total / 1e3 / rounds:.4f} "
             f"ms/round  x{e.count // rounds}  {e.key[:90]}")
     return {"wall_ms": wall_ms, "kernel_ms": busy_ms,
             "idle_share": 1 - busy_ms / wall_ms, "launches": launches}
+
+
+def profile_serve(rg, ap, card: str, what: str, rounds: int = 10) -> dict:
+    """A profiler window of an engine's rounds, a counter op for every
+    group each round."""
+    G = rg.num_groups
+
+    def run(r0, n):
+        for _ in range(n):
+            rg.submit_batch(np.arange(G), ap.OP_LONG_ADD, 1)
+            rg.step_round()
+
+    return profile_rounds(run, rounds, f"{rounds} {what} rounds, G={G} "
+                          f"P={rg.num_peers} L={rg.log_slots} S=16, host "
+                          "bookkeeping included", card)
 
 
 def main() -> int:
@@ -759,11 +1108,35 @@ def main() -> int:
         resource=ap.ResourceConfig.counters_only()), counter_ops)
     all_ops = np.array(sorted({v for k, v in vars(ap).items()
                                if k.startswith("OP_")}), np.int32)
-    phase_path(cons, convert, ks, dev, "mixed path", 5, 32, 40, cons.Config(
-        append_window=S, applies_per_round=S,
-        pool_budgets=(4, 6, 4, 6, 4, 4, 4, 4)), all_ops)
+    mixed_cfg = cons.Config(append_window=S, applies_per_round=S,
+                            pool_budgets=(4, 6, 4, 6, 4, 4, 4, 4))
+    phase_path(cons, convert, ks, dev, "mixed path", 5, 32, 40, mixed_cfg,
+               all_ops)
+    membership = phase_path(
+        cons, convert, ks, dev, "membership path", 5, 32, 40,
+        mixed_cfg._replace(resource=bench.RESOURCE_CONFIGS["mixed"],
+                           dynamic_membership=True),
+        np.array([ap.OP_LONG_ADD], np.int32), G=10_000,
+        members=np.arange(5) < 3, churn=membership_churn(ap, 5))
     launches = {"counter_serve": phase_serve(RaftGroups, cons, ap, ks),
                 "pool_serve": phase_pool_serve(RaftGroups, ap, ks)}
+    served = phase_membership_serve(RaftGroups, bench, cons, ap, ks)
+    launches["membership_serve"] = served["launches"]
+    per_round = {name: n / served["rounds"]
+                 for name, n in served["launches"].items()}
+    masked_timing = time_fns(
+        masked_fns(kernels, served["rg"]), per_round,
+        "G=100000 P=5 L=32 S=16 (membership serve step, member-masked)",
+        card)
+    profile_serve(served.pop("rg"), ap, card, "membership serve")
+    # the same engine and traffic with static membership, for the
+    # launches and kernel time the membership branch adds
+    static = RaftGroups(100_000, 5, log_slots=32, submit_slots=16,
+                        config=bench.scenario_config("mixed", S))
+    static.wait_for_leaders()
+    profile_serve(static, ap, card, "static-membership serve")
+    del static
+    phase_engine_extras(RaftGroups, bench, convert, ap)
     _, timing = phase_bench(bench, cons, kernels, dev, card)
     phase_profile(bench, dev, card)
     mixed, mixed_timing = phase_mixed_bench(bench, cons, ap, kernels, dev,
@@ -772,12 +1145,14 @@ def main() -> int:
     phase_profile(bench, dev, card, **MIXED)
     phase_short_benches(bench, card)
     phase_profile(bench, dev, card, scenario="map")
+    phase_query_lane(bench, card, QUERY_ROUNDS, QUERY_REPEATS)
+    phase_elections(bench, card, ELECTION_ROUNDS, ELECTION_REPEATS)
     say(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f}s")
     sources = {"kth_largest": "kth_largest.cu",
                "admit_submits": "quorum_phase.cu",
                "ack_commit": "quorum_phase.cu"}
-    say(json.dumps({"kernels": [{
+    rows = [{
         "name": name,
         "route": "cuda",
         "source": f"copycat_tpu_torch/csrc/{src}",
@@ -789,7 +1164,20 @@ def main() -> int:
         "max_abs_err": errs[name],
         **timing[name],
         "mixed_shape": mixed_timing.get(name),
-    } for name, src in sources.items()]}))
+    } for name, src in sources.items()]
+    # the member-masked instantiations of the fused kernels, on the
+    # membership path (Config.dynamic_membership)
+    rows += [{
+        "name": f"{name}_masked",
+        "route": "cuda",
+        "source": "copycat_tpu_torch/csrc/quorum_phase.cu",
+        "replaces": "copycat_tpu/ops/pallas_kernels.py:69",
+        "launches": launches["membership_serve"][name],
+        "launches_membership_path": membership["launches"][name],
+        "max_abs_err": errs[f"{name}_masked"],
+        **masked_timing[name],
+    } for name in ("admit_submits", "ack_commit")]
+    say(json.dumps({"kernels": rows}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

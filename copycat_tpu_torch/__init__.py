@@ -12,10 +12,15 @@ against.
   plain torch versions;
 - ``ops/apply.py`` — the resource apply kernels of every pool, one entry
   at a time (``apply_entry``) or folded per pool (``apply_window``);
-- ``ops/consensus.py`` — one synchronous Raft round over every group;
-- ``models/raft_groups.py`` — the host runtime (submit, step, harvest);
-- ``bench.py`` — the throughput bench of the counter, map, lock and
-  mixed scenarios (``python -m copycat_tpu_torch.bench --scenario ...``);
+- ``ops/consensus.py`` — one synchronous Raft round over every group
+  (static or dynamic membership), and the read-only ``query_step``;
+- ``models/raft_groups.py`` — the host runtime (submit, step, harvest,
+  the query lane, vector drives, membership changes);
+- ``models/sessions.py`` — device sessions: keep-alives and expiry
+  fan-out through the log;
+- ``bench.py`` — the bench of the counter, map, lock, mixed, election and
+  map_read scenarios (``python -m copycat_tpu_torch.bench --scenario
+  ...``);
 - ``convert.py`` — state conversion to and from numpy leaves;
 - ``cases.py`` — random inputs, with edge cases, for the fused kernels'
   tests.

@@ -11,7 +11,18 @@ scenarios, at the same shapes and in the same units:
   map, set, queue, lock chain, election listen/resign) under the
   partition nemesis: in every period of 20 rounds one peer per group is
   isolated for 10, the same schedule each repetition (seed 1), with a
-  snapshot install after every round and election timers 2-4.
+  snapshot install after every round and election timers 2-4;
+- ``election`` — forced leader churn (BASELINE config #2): G=1,000 × P=3,
+  L=64, counters only, no submits, timers 4-9, the isolation nemesis with
+  period 15 and seed 2; reports elections/s (groups whose round-start
+  leader changed to a new one) and checks that no group ever has two
+  leaders in one term;
+- ``map_read`` — BASELINE config #3's get-heavy variant: G=10,000 × P=3,
+  L=64, the map pool alone; every round 16 puts per group through the log
+  and 16 gets through ``query_step`` (no log append) at ``--read-level
+  sequential`` (leader-served) or ``atomic`` (lease-gated); reports ops/s
+  (committed puts plus served gets) and checks every served get against
+  the value the puts wrote.
 
 Defaults are the reference's: G=10,000 groups × P=3 peers, S=E=A=16
 submit slots / append window / applies per round, L=32 log slots for
@@ -29,8 +40,10 @@ quorum kernel (0 on the CPU, where the plain versions run); and
 ``diverged_lanes``, the replica pairs with equal ``applied_index`` whose
 resource leaves differ after the run (must be 0).
 
-    python -m copycat_tpu_torch.bench [--scenario counter|map|lock|mixed]
-        [--groups N --peers P --rounds R --repeats K]
+    python -m copycat_tpu_torch.bench
+        [--scenario counter|map|lock|mixed|election|map_read]
+        [--read-level sequential|atomic] [--groups N --peers P
+        --rounds R --repeats K]
 
 runs on the CUDA card and prints one JSON line naming the card and its
 power limit; without a card it raises. ``run_throughput(device="cpu")``
@@ -56,11 +69,13 @@ from .ops.consensus import (
     RaftState,
     StepOutputs,
     Submits,
+    current_leader,
     draw_timers,
     full_delivery,
     init_state,
     install_snapshots,
     make_submits,
+    query_step,
     step,
 )
 
@@ -71,6 +86,9 @@ KERNELS = {"kth_largest": kernels.kth_largest,
 ROUNDS, REPEATS = 200, 5
 SEED = 0
 NEMESIS_PERIOD, NEMESIS_SEED = 20, 1
+ELECTION_GROUPS, ELECTION_PERIOD, ELECTION_SEED = 1_000, 15, 2
+MAP_VALUE = 7                 # what every map_read put writes
+READ_LEVELS = ("sequential", "atomic")
 
 # Each scenario hosts only the pools its groups use (pool state is carried
 # through every step).
@@ -185,7 +203,7 @@ SUBMIT_PATTERNS = {
     "lock": lock_submits,
     "mixed": mixed_submits,
 }
-SCENARIOS = tuple(SUBMIT_PATTERNS)
+SCENARIOS = tuple(SUBMIT_PATTERNS) + ("election", "map_read")
 
 
 # ---------------------------------------------------------------------------
@@ -261,8 +279,9 @@ def setup(scenario: str = "counter", groups: int = GROUPS,
           ) -> tuple[Cell, RaftState]:
     """A scenario's cell and its state with every group's leader
     elected."""
-    if scenario not in SCENARIOS:
-        raise ValueError(f"scenario {scenario!r} is not one of {SCENARIOS}")
+    if scenario not in SUBMIT_PATTERNS:
+        raise ValueError(f"scenario {scenario!r} is not one of "
+                         f"{tuple(SUBMIT_PATTERNS)}")
     dev = resolve_device(device)
     G, P, S = groups, peers, submit_slots
     # the reference's ring: 32 for mixed (it only covers in-flight depth)
@@ -321,6 +340,166 @@ def diverged_lanes(state: RaftState) -> int:
     return int(bad)
 
 
+def _timed_reps(name: str, run, state, rounds: int, repeats: int, dev
+                ) -> tuple:
+    """One warm-up repetition of ``run(state) -> (state, n, extra)``,
+    then ``repeats`` timed ones, each ended by reading ``n`` (a device
+    synchronise); returns the state, the rates, the best repetition's
+    seconds and ``extra``, and the quorum kernels' launches per round of
+    the last repetition."""
+    state, n, _ = run(state)
+    log(f"bench[{name}]: warmup counted {int(n)}")
+    rates, best_dt, best_extra, launches = [], None, None, {}
+    for rep in range(repeats):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        before = {k: f.launches for k, f in KERNELS.items()}
+        t0 = time.perf_counter()
+        state, n, extra = run(state)
+        n = int(n)
+        dt = time.perf_counter() - t0
+        launches = {k: (f.launches - before[k]) / rounds
+                    for k, f in KERNELS.items()}
+        rates.append(n / dt)
+        if best_dt is None or n / dt >= max(rates[:-1], default=0):
+            best_dt, best_extra = dt, extra
+        log(f"bench[{name}]: rep {rep}: {n} in {dt:.3f}s -> "
+            f"{n / dt:,.0f}/s ({dt / rounds * 1e3:.3f} ms/round)")
+    return state, rates, best_dt, best_extra, launches
+
+
+def run_election(groups: int = ELECTION_GROUPS, peers: int = PEERS,
+                 rounds: int = ROUNDS, repeats: int = REPEATS,
+                 device: torch.device | str | None = None) -> dict:
+    """BASELINE config #2: elections completed per second under forced
+    leader churn. Every round one peer per group is isolated for the first
+    half of each 15-round period (seed 2, the same schedule each
+    repetition); no submits. An election counts where a group's
+    round-start leader is a lane other than the round before's. Every
+    round also checks election safety on the device: no two lanes of a
+    group lead in one term, within the round and across rounds."""
+    dev = resolve_device(device)
+    G, P, L, S = groups, peers, 64, SUBMIT_SLOTS
+    config = Config(resource=RESOURCE_CONFIGS["counter"])
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    state = init_state(G, P, L, draw_timers(G, P, config, gen), config)
+    empty = make_submits(G, S, dev)
+    state, n_elect = elect_all(state, empty, full_delivery(G, P, dev), gen,
+                               config)
+    log(f"bench[election]: G={G} P={P} L={L} device={dev}: all leaders "
+        f"elected in {n_elect} rounds")
+    victims = isolation_masks(rounds, G, P, ELECTION_PERIOD, ELECTION_SEED)
+    delivers = [victim_deliver(torch.from_numpy(v).to(dev), G, P)
+                for v in victims]
+    max_term = 4 * (rounds * (repeats + 1) + 200)
+    # owner[g, t]: the lane seen leading group g in term t (-1 none); the
+    # last column takes the writes of lanes that do not lead
+    owner = torch.full((G, max_term + 1), -1, dtype=torch.int32, device=dev)
+    lanes = torch.arange(P, dtype=torch.int32, device=dev)[None, :]
+    unsafe = torch.zeros((), dtype=torch.int64, device=dev)
+
+    def run(state):
+        nonlocal unsafe
+        n = torch.zeros((), dtype=torch.int64, device=dev)
+        prev = current_leader(state)[0]
+        for r in range(rounds):
+            fresh = draw_timers(G, P, config, gen)
+            cand = draw_timers(G, P, config, gen)
+            state, out = step(state, empty, delivers[r], fresh, cand, config)
+            n += ((out.leader >= 0) & (out.leader != prev)).sum()
+            prev = out.leader
+            # election safety: two lanes leading one term, in this round
+            # or against the lane recorded for that term before
+            is_ldr = state.role == 2
+            idx = torch.where(is_ldr, state.term.clamp(max=max_term - 1),
+                              max_term).long()
+            seen = owner.gather(1, idx)
+            unsafe += (is_ldr & (((seen >= 0) & (seen != lanes))
+                                 | (state.term >= max_term))).sum()
+            same = is_ldr[:, :, None] & is_ldr[:, None, :] \
+                & (state.term[:, :, None] == state.term[:, None, :])
+            unsafe += same.sum() - is_ldr.sum()
+            owner.scatter_(1, idx, lanes.expand(G, P))
+        return state, n, None
+
+    state, rates, dt, _, launches = _timed_reps("election", run, state,
+                                                rounds, repeats, dev)
+    return {
+        "metric": f"elections_per_sec_{G}_groups_under_nemesis",
+        "value": max(rates),
+        "unit": "elections/sec",
+        "scenario": "election",
+        "ms_per_round": dt / rounds * 1e3,
+        "two_leaders_in_a_term": int(unsafe),
+        "launches_per_round": launches,
+        **spread(rates),
+        "shape": {"groups": G, "peers": P, "log_slots": L, "rounds": rounds,
+                  "repeats": repeats, "timers": [config.timer_min,
+                                                 config.timer_max],
+                  "nemesis": {"period": ELECTION_PERIOD,
+                              "seed": ELECTION_SEED}},
+        "device": card_info() if dev.type == "cuda" else "cpu",
+    }
+
+
+def run_map_read(read_level: str = "sequential", groups: int = GROUPS,
+                 peers: int = PEERS, submit_slots: int = SUBMIT_SLOTS,
+                 rounds: int = ROUNDS, repeats: int = REPEATS,
+                 device: torch.device | str | None = None) -> dict:
+    """BASELINE config #3's get-heavy variant: each round S puts per
+    group through the log (keys 1 and 2, value 7) and S gets through the
+    query lane (``query_step``: no log append; ``atomic`` gates each get
+    on the leader lease). Counts committed entries plus served gets; every
+    served get must read the value the puts wrote."""
+    if read_level not in READ_LEVELS:
+        raise ValueError(f"read level {read_level!r} is not one of "
+                         f"{READ_LEVELS}")
+    cell, state = setup("map", groups, peers, None, submit_slots, rounds,
+                        device)
+    dev = state.term.device
+    G, P = state.term.shape
+    L, S = state.log_term.shape[-1], submit_slots
+    puts = _submits(G, S, dev, [ap.OP_MAP_PUT], [1, 2], [MAP_VALUE])
+    gets = _submits(G, S, dev, [ap.OP_MAP_GET], [1, 2])
+    atomic = (torch.ones((G, S), dtype=torch.bool, device=dev)
+              if read_level == "atomic" else None)
+    cell = cell._replace(submits=puts)
+
+    def run(state):
+        n = torch.zeros((), dtype=torch.int64, device=dev)
+        wrong = torch.zeros((), dtype=torch.int64, device=dev)
+        served_n = torch.zeros((), dtype=torch.int64, device=dev)
+        applied_prev = state.applied_index.amax(dim=1)
+        for r in range(rounds):
+            state, _ = step_cell(cell, state, r)
+            results, served = query_step(state, gets, atomic, cell.config)
+            applied_now = state.applied_index.amax(dim=1)
+            n += (applied_now - applied_prev).sum() + served.sum()
+            served_n += served.sum()
+            wrong += (served & (results != MAP_VALUE)).sum()
+            applied_prev = applied_now
+        return state, n, (served_n, wrong)
+
+    state, rates, dt, (served_n, wrong), launches = _timed_reps(
+        f"map_read {read_level}", run, state, rounds, repeats, dev)
+    return {
+        "metric": f"map_ops_per_sec_{G}_groups_half_{read_level}_reads",
+        "value": max(rates),
+        "unit": "ops/sec",
+        "scenario": "map_read",
+        "read_level": read_level,
+        "ms_per_round": dt / rounds * 1e3,
+        "served_reads": int(served_n),
+        "wrong_reads": int(wrong),
+        "launches_per_round": launches,
+        **spread(rates),
+        "shape": {"groups": G, "peers": P, "log_slots": L,
+                  "submit_slots": S, "rounds": rounds, "repeats": repeats},
+        "device": card_info() if dev.type == "cuda" else "cpu",
+    }
+
+
 def run_throughput(scenario: str = "counter", groups: int = GROUPS,
                    peers: int = PEERS, log_slots: int | None = None,
                    submit_slots: int = SUBMIT_SLOTS, rounds: int = ROUNDS,
@@ -350,26 +529,9 @@ def run_throughput(scenario: str = "counter", groups: int = GROUPS,
             applied_prev = applied_now
         return state, n, hist
 
-    state, n, _ = run(state)
-    log(f"bench[{scenario}]: warmup committed {int(n)} ops")
-    best, best_dt, best_hist, reps = 0.0, 1.0, None, []
-    launches = dict.fromkeys(KERNELS, 0)
-    for rep in range(repeats):
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        before = {name: k.launches for name, k in KERNELS.items()}
-        t0 = time.perf_counter()
-        state, n, hist = run(state)
-        n = int(n)                      # waits for the device
-        dt = time.perf_counter() - t0
-        launches = {name: k.launches - before[name]
-                    for name, k in KERNELS.items()}
-        ops = n / dt
-        reps.append(ops)
-        if ops >= best:
-            best, best_dt, best_hist = ops, dt, hist.cpu().numpy()
-        log(f"bench[{scenario}]: rep {rep}: {n} committed ops in {dt:.3f}s "
-            f"-> {ops:,.0f} ops/sec ({dt / rounds * 1e3:.3f} ms/round)")
+    state, reps, best_dt, hist, launches = _timed_reps(
+        scenario, run, state, rounds, repeats, dev)
+    best, best_hist = max(reps), hist.cpu().numpy()
     if best_hist[-1]:
         log(f"bench[{scenario}]: WARNING: {int(best_hist[-1])} samples "
             f"saturated the top latency bucket; p99 is a lower bound")
@@ -387,8 +549,7 @@ def run_throughput(scenario: str = "counter", groups: int = GROUPS,
         "p99_commit_latency_rounds": p99_r,
         "p50_commit_latency_ms": p50_r * ms_per_round,
         "p99_commit_latency_ms": p99_r * ms_per_round,
-        "launches_per_round": {name: n / rounds
-                               for name, n in launches.items()},
+        "launches_per_round": launches,
         "diverged_lanes": diverged_lanes(state),
         **spread(reps),
         "shape": {"groups": G, "peers": P, "log_slots": L,
@@ -403,14 +564,24 @@ def run_throughput(scenario: str = "counter", groups: int = GROUPS,
 def main(argv: list[str] | None = None) -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--scenario", choices=SCENARIOS, default="counter")
-    p.add_argument("--groups", type=int, default=GROUPS)
+    p.add_argument("--read-level", choices=READ_LEVELS, default="sequential",
+                   help="map_read: how the gets are served")
+    p.add_argument("--groups", type=int,
+                   help=f"default {GROUPS} ({ELECTION_GROUPS} for election)")
     p.add_argument("--peers", type=int, default=PEERS)
     p.add_argument("--rounds", type=int, default=ROUNDS)
     p.add_argument("--repeats", type=int, default=REPEATS)
     args = p.parse_args(argv)
-    print(json.dumps(run_throughput(
-        args.scenario, groups=args.groups, peers=args.peers,
-        rounds=args.rounds, repeats=args.repeats)))
+    kw = dict(peers=args.peers, rounds=args.rounds, repeats=args.repeats)
+    if args.scenario == "election":
+        result = run_election(groups=args.groups or ELECTION_GROUPS, **kw)
+    elif args.scenario == "map_read":
+        result = run_map_read(args.read_level, groups=args.groups or GROUPS,
+                              **kw)
+    else:
+        result = run_throughput(args.scenario, groups=args.groups or GROUPS,
+                                **kw)
+    print(json.dumps(result))
 
 
 if __name__ == "__main__":

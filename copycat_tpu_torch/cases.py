@@ -18,7 +18,11 @@ them whatever its size (G >= 5):
   a candidate below the ring's live window; ``leader_stale`` from a
   higher-term ack; duplicate ``matchIndex`` values.
 
-The random rows after them mix the same conditions.
+The random rows after them mix the same conditions. ``member_views``
+gives the dynamic-membership form of either phase its ``view``: the
+leader lane's word is one member in group 0, every lane in group 1 and
+every lane but the leader in group 2; in the random rows it is any
+non-empty set of lanes, without the leader in about a fifth of them.
 """
 
 from __future__ import annotations
@@ -107,3 +111,23 @@ def ack_case(rng: np.random.Generator, G: int, P: int, L: int,
                 last_index=last_index, l_match=l_match, l_next=l_next,
                 lead=lead, active=active, l_term=l_term, l_last=l_last,
                 l_commit=l_commit, l_log_term=l_log_term)
+
+
+def member_views(rng: np.random.Generator, lead: np.ndarray,
+                 P: int) -> np.ndarray:
+    """Active-config bitmasks ``[G, P]`` int32 over P lanes for the groups
+    led by ``lead`` (-1: lane 0 is read)."""
+    G = lead.shape[0]
+    full = (1 << P) - 1
+    views = rng.integers(1, full + 1, (G, P)).astype(np.int32)
+    ld = np.maximum(lead, 0)
+    rows = np.arange(G)
+    outside = rng.random(G) < 0.2
+    word = views[rows, ld]
+    word = np.where(outside, word & ~(1 << ld), word)
+    word = np.where(word == 0, 1 << ((ld + 1) % P), word)   # never empty
+    word[0] = 1 << ((ld[0] + 1) % P) if P > 1 else 1        # one member
+    word[1] = full                                          # every lane
+    word[2] = full & ~(1 << ld[2]) if P > 1 else full       # not the leader
+    views[rows, ld] = word
+    return views

@@ -6,7 +6,9 @@ plain dicts keyed by field name; the ``*_to_torch`` functions build this
 package's types from them on a chosen device, and :func:`to_numpy` turns
 any of this package's NamedTuples into nested dicts of numpy arrays by
 field name. The field names and dtypes are the reference's, so the two
-engines can start from one state and be compared leaf by leaf.
+engines can start from one state and be compared leaf by leaf — the
+voter bitmask ``member`` (set from ``voters`` / ``members`` at init) and
+the ``refused`` output of dynamic membership included.
 """
 
 from __future__ import annotations
@@ -75,8 +77,9 @@ def outputs_to_torch(outputs: Any, device: torch.device | str) -> StepOutputs:
 def config_to_torch(config: Any) -> Config:
     """This package's ``Config`` that steps exactly as the reference's
     does: ``use_pallas`` is dropped (the device of the state chooses the
-    tally) and ``ring_flow_control`` is off, as the reference has
-    none."""
+    tally) and ``ring_flow_control`` is off, as the reference has none.
+    Every other field, ``dynamic_membership`` included, passes as it
+    is."""
     f = dict(_fields(config))
     f.pop("use_pallas", None)
     f.setdefault("ring_flow_control", False)

@@ -29,6 +29,12 @@ __device__ __forceinline__ int32_t kth_select(const int32_t (&v)[P], int k) {
   return res;
 }
 
+// The quorum of a membership bitmask: half its members, plus one. The word's
+// every bit counts, as jax.lax.population_count counts them in the reference.
+__device__ __forceinline__ int of_members(uint32_t members) {
+  return __popc(members) / 2 + 1;
+}
+
 // a mod m with the sign of m (m > 0 gives 0..m-1), as torch's `%` on
 // integers computes it. C's `%` truncates: (-1) % 64 is -1, which would
 // index one slot before a ring row.

@@ -45,6 +45,19 @@
 // - bool tensors are one byte of 0/1 and are read and written as uint8_t;
 // - every `%` of the plain code is quorum::floormod.
 //
+// Dynamic membership (Config.dynamic_membership) changes the tally itself:
+// the reference takes kth_largest_masked with a per-group quorum at
+// copycat_tpu/ops/consensus.py:643 and :829, and counts the lease's acks over
+// member lanes only (:826-828). Both kernels take an optional `view` [G,P]
+// int32, each lane's active-config bitmask. Where it is given (the `Masked`
+// instantiation), the kernel reads the leader lane's word itself, next to
+// `lead`: the quorum is popc(word) / 2 + 1, a lane outside the word enters
+// the rank-select as INT32_MIN (as kth_largest_masked does), and in
+// ack_commit only member lanes count towards the lease. Where it is null the
+// static instantiation runs, the same code as before: `Masked` is a template
+// flag, so the static path carries no test of it. The view adds one 4-byte
+// read per group.
+//
 // `lead` comes in unclamped (-1 for a leaderless group). The gather of the
 // leader's applied_index reads lane max(lead, 0), as the plain code's
 // _peer_view does; the self-lane test compares with the unclamped value, so
@@ -74,9 +87,10 @@ constexpr int kStageThreads = 4;   // admit_submits: threads per group
 // shared memory, consecutive threads on consecutive elements, so every warp
 // access to device memory is coalesced; the owning thread walks its group's
 // S slots in shared memory.
-template <int P>
+template <int P, bool Masked>
 __global__ void admit_submits_kernel(
-    const int32_t* __restrict__ applied, const int32_t* __restrict__ lead,
+    const int32_t* __restrict__ applied, const int32_t* __restrict__ view,
+    const int32_t* __restrict__ lead,
     const uint8_t* __restrict__ accept_ok, const uint8_t* __restrict__ valid,
     const int32_t* __restrict__ l_last, uint8_t* __restrict__ accepted,
     int32_t* __restrict__ assigned, int64_t* __restrict__ slot,
@@ -97,6 +111,7 @@ __global__ void admit_submits_kernel(
   // The group's own inputs first, so their loads overlap the staging.
   int32_t v[P];
   int32_t ld = 0, last = 0;
+  uint32_t members = 0;
   bool ok = false;
   if (owner) {
 #pragma unroll
@@ -104,6 +119,8 @@ __global__ void admit_submits_kernel(
     ld = max(lead[g], 0);
     ok = accept_ok[g] != 0;
     last = l_last[g];
+    if constexpr (Masked)
+      members = static_cast<uint32_t>(view[static_cast<size_t>(g) * P + ld]);
   }
 #pragma unroll 4
   for (int e = t; e < n; e += T) s_flag[e] = valid[base + e];
@@ -116,8 +133,18 @@ __global__ void admit_submits_kernel(
       if (p == ld) l_applied = v[p];
     // Backpressure: the ring never overwrites an entry the leader or a
     // quorum-th replica still has to apply.
-    const int32_t allowed =
-        min(l_applied, quorum::kth_select<P>(v, quorum)) + L;
+    int32_t floor_q;
+    if constexpr (Masked) {
+      // the quorum-th among the leader's members
+      int32_t m[P];
+#pragma unroll
+      for (int p = 0; p < P; ++p)
+        m[p] = (members >> p) & 1u ? v[p] : INT32_MIN;
+      floor_q = quorum::kth_select<P>(m, quorum::of_members(members));
+    } else {
+      floor_q = quorum::kth_select<P>(v, quorum);
+    }
+    const int32_t allowed = min(l_applied, floor_q) + L;
     int32_t pos = last;
     int32_t n_acc = 0;
     for (int s = t * S; s < (t + 1) * S; ++s) {
@@ -153,6 +180,7 @@ struct AckIn {
   const int32_t *l_term, *l_last, *l_commit;             // [G]
   const int32_t* l_log_term;                             // [G, >=L] rows
   int64_t log_row_stride;
+  const int32_t* view;                                   // [G,P] or null
 };
 
 struct AckOut {
@@ -161,12 +189,18 @@ struct AckOut {
   int32_t *max_ack_term, *l_commit;  // [G]
 };
 
-template <int P>
+template <int P, bool Masked>
 __global__ void ack_commit_kernel(const AckIn in, const AckOut out, int G,
                                   int quorum, int L) {
   const int g = blockIdx.x * blockDim.x + threadIdx.x;
   if (g >= G) return;
   const int32_t ld = in.lead[g];
+  uint32_t members = ~0u;
+  if constexpr (Masked) {
+    members = static_cast<uint32_t>(
+        in.view[static_cast<size_t>(g) * P + max(ld, 0)]);
+    quorum = quorum::of_members(members);
+  }
   const bool active = in.active[g] != 0;
   const int32_t l_term = in.l_term[g];
   const int32_t l_last = in.l_last[g];
@@ -200,8 +234,9 @@ __global__ void ack_commit_kernel(const AckIn in, const AckOut out, int G,
       l_next[p] = max(min(prev, hint + 1), 1);
     }
     const bool self = p == ld;
-    match_full[p] = self ? l_last : l_match[p];
-    acked += success || self;
+    const bool member = !Masked || ((members >> p) & 1u);
+    match_full[p] = member ? (self ? l_last : l_match[p]) : INT32_MIN;
+    acked += (success || self) && member;
   }
 #pragma unroll
   for (int p = 0; p < P; ++p) {
@@ -242,36 +277,45 @@ inline int admit_groups(int S) {
 }
 
 template <int P>
-void admit(const int32_t* applied, const int32_t* lead,
+void admit(const int32_t* applied, const int32_t* view, const int32_t* lead,
            const uint8_t* accept_ok, const uint8_t* valid,
            const int32_t* l_last, uint8_t* accepted, int32_t* assigned,
            int64_t* slot, int32_t* l_last_out, int G, int S, int quorum,
            int L, cudaStream_t s) {
   const int groups = admit_groups(S);
-  admit_submits_kernel<P><<<blocks_for(G, groups), kStageThreads * groups,
-                            5 * S * groups, s>>>(
-          applied, lead, accept_ok, valid, l_last, accepted, assigned, slot,
-          l_last_out, G, S, quorum, L);
+  const dim3 grid(blocks_for(G, groups)), block(kStageThreads * groups);
+  if (view == nullptr)
+    admit_submits_kernel<P, false><<<grid, block, 5 * S * groups, s>>>(
+        applied, view, lead, accept_ok, valid, l_last, accepted, assigned,
+        slot, l_last_out, G, S, quorum, L);
+  else
+    admit_submits_kernel<P, true><<<grid, block, 5 * S * groups, s>>>(
+        applied, view, lead, accept_ok, valid, l_last, accepted, assigned,
+        slot, l_last_out, G, S, quorum, L);
 }
 
 template <int P>
 void ack(const AckIn& in, const AckOut& out, int G, int quorum, int L,
          cudaStream_t s) {
-  ack_commit_kernel<P>
-      <<<blocks_for(G, quorum::kThreads), quorum::kThreads, 0, s>>>(
-          in, out, G, quorum, L);
+  const dim3 grid(blocks_for(G, quorum::kThreads)), block(quorum::kThreads);
+  if (in.view == nullptr)
+    ack_commit_kernel<P, false><<<grid, block, 0, s>>>(in, out, G, quorum, L);
+  else
+    ack_commit_kernel<P, true><<<grid, block, 0, s>>>(in, out, G, quorum, L);
 }
 
 }  // namespace
 
-// applied [G,P] i32, lead [G] i32, accept_ok [G] u8, valid [G,S] u8,
+// applied [G,P] i32, view [G,P] i32 or null (static membership), lead [G]
+// i32, accept_ok [G] u8, valid [G,S] u8,
 // l_last [G] i32 in; accepted [G,S] u8, assigned [G,S] i32, slot [G,S] i64,
 // l_last_out [G] i32 out; all contiguous on the device. 1 <= P <= 8,
 // 1 <= quorum <= P, 1 <= S <= 256, L >= 1, lead in [-1, P) (the wrapper
 // checks all but the last, which is a value on the device; a lead outside
 // that range selects lane 0).
 extern "C" int admit_submits_launch(
-    const void* applied, const void* lead, const void* accept_ok,
+    const void* applied, const void* view, const void* lead,
+    const void* accept_ok,
     const void* valid, const void* l_last, void* accepted, void* assigned,
     void* slot, void* l_last_out, int G, int P, int S, int quorum, int L,
     void* stream) {
@@ -279,6 +323,7 @@ extern "C" int admit_submits_launch(
   if (S < 1 || admit_groups(S) < 32)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto* ap = static_cast<const int32_t*>(applied);
+  const auto* vw = static_cast<const int32_t*>(view);
   const auto* le = static_cast<const int32_t*>(lead);
   const auto* ok = static_cast<const uint8_t*>(accept_ok);
   const auto* va = static_cast<const uint8_t*>(valid);
@@ -290,28 +335,28 @@ extern "C" int admit_submits_launch(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (P) {
     case 1:
-      admit<1>(ap, le, ok, va, ll, ac, as, sl, lo, G, S, quorum, L, s);
+      admit<1>(ap, vw, le, ok, va, ll, ac, as, sl, lo, G, S, quorum, L, s);
       break;
     case 2:
-      admit<2>(ap, le, ok, va, ll, ac, as, sl, lo, G, S, quorum, L, s);
+      admit<2>(ap, vw, le, ok, va, ll, ac, as, sl, lo, G, S, quorum, L, s);
       break;
     case 3:
-      admit<3>(ap, le, ok, va, ll, ac, as, sl, lo, G, S, quorum, L, s);
+      admit<3>(ap, vw, le, ok, va, ll, ac, as, sl, lo, G, S, quorum, L, s);
       break;
     case 4:
-      admit<4>(ap, le, ok, va, ll, ac, as, sl, lo, G, S, quorum, L, s);
+      admit<4>(ap, vw, le, ok, va, ll, ac, as, sl, lo, G, S, quorum, L, s);
       break;
     case 5:
-      admit<5>(ap, le, ok, va, ll, ac, as, sl, lo, G, S, quorum, L, s);
+      admit<5>(ap, vw, le, ok, va, ll, ac, as, sl, lo, G, S, quorum, L, s);
       break;
     case 6:
-      admit<6>(ap, le, ok, va, ll, ac, as, sl, lo, G, S, quorum, L, s);
+      admit<6>(ap, vw, le, ok, va, ll, ac, as, sl, lo, G, S, quorum, L, s);
       break;
     case 7:
-      admit<7>(ap, le, ok, va, ll, ac, as, sl, lo, G, S, quorum, L, s);
+      admit<7>(ap, vw, le, ok, va, ll, ac, as, sl, lo, G, S, quorum, L, s);
       break;
     case 8:
-      admit<8>(ap, le, ok, va, ll, ac, as, sl, lo, G, S, quorum, L, s);
+      admit<8>(ap, vw, le, ok, va, ll, ac, as, sl, lo, G, S, quorum, L, s);
       break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -321,10 +366,11 @@ extern "C" int admit_submits_launch(
 // recv, reject_term, del_back, match, entries_sent, ok_term [G,P] u8;
 // upto, prev, term1, last_index, l_match, l_next [G,P] i32; lead [G] i32
 // (-1 none); active [G] u8; l_term, l_last, l_commit [G] i32; l_log_term
-// rows of L i32, ``log_row_stride`` elements apart. Out: l_match_out,
-// l_next_out [G,P] i32; leader_stale, lease [G] u8; max_ack_term,
-// l_commit_out [G] i32. All contiguous on the device but l_log_term, whose
-// rows need only be dense. 1 <= P <= 8, 1 <= quorum <= P, L >= 1.
+// rows of L i32, ``log_row_stride`` elements apart; view [G,P] i32 or null
+// (static membership). Out: l_match_out, l_next_out [G,P] i32;
+// leader_stale, lease [G] u8; max_ack_term, l_commit_out [G] i32. All
+// contiguous on the device but l_log_term, whose rows need only be dense.
+// 1 <= P <= 8, 1 <= quorum <= P, L >= 1.
 extern "C" int ack_commit_launch(
     const void* recv, const void* reject_term, const void* del_back,
     const void* match, const void* entries_sent, const void* ok_term,
@@ -332,8 +378,9 @@ extern "C" int ack_commit_launch(
     const void* last_index, const void* l_match, const void* l_next,
     const void* lead, const void* active, const void* l_term,
     const void* l_last, const void* l_commit, const void* l_log_term,
-    long long log_row_stride, void* l_match_out, void* l_next_out,
-    void* leader_stale, void* lease, void* max_ack_term, void* l_commit_out,
+    long long log_row_stride, const void* view, void* l_match_out,
+    void* l_next_out, void* leader_stale, void* lease, void* max_ack_term,
+    void* l_commit_out,
     int G, int P, int quorum, int L, void* stream) {
   if (G <= 0) return 0;
   const auto u8 = [](const void* p) { return static_cast<const uint8_t*>(p); };
@@ -342,7 +389,8 @@ extern "C" int ack_commit_launch(
                  u8(entries_sent), u8(ok_term),   i32(upto),    i32(prev),
                  i32(term1),     i32(last_index), i32(l_match), i32(l_next),
                  i32(lead),      u8(active),      i32(l_term),  i32(l_last),
-                 i32(l_commit),  i32(l_log_term), log_row_stride};
+                 i32(l_commit),  i32(l_log_term), log_row_stride,
+                 i32(view)};
   const AckOut out{static_cast<int32_t*>(l_match_out),
                    static_cast<int32_t*>(l_next_out),
                    static_cast<uint8_t*>(leader_stale),

@@ -1,9 +1,8 @@
 """Batched Raft consensus: one synchronous round over every group (torch).
 
-Counterpart of ``copycat_tpu/ops/consensus.py`` on the static-membership
-path. State is ``[num_groups, num_peers]`` tensors, log rings are
-``[G, P, L]``, and one :func:`step` call advances every group by one
-round in six phases:
+Counterpart of ``copycat_tpu/ops/consensus.py``. State is
+``[num_groups, num_peers]`` tensors, log rings are ``[G, P, L]``, and one
+:func:`step` call advances every group by one round in six phases:
 
 1. inject client submits into the leader log (backpressure, lease gate);
 2. AppendEntries leader → followers (log matching, cyclic window copy);
@@ -47,8 +46,14 @@ hold that path to the reference.
 
 Every resource pool runs, and ``Config.pool_budgets`` selects the
 conflict-partitioned apply (``ops/apply.apply_window``).
-``dynamic_membership``, ``monotone_tag_accept`` and ``telemetry`` are not
-ported yet and raise ``NotImplementedError``.
+``Config.dynamic_membership`` runs the reference's per-group voter sets
+(server join and leave through ``OP_CFG_ADD``/``OP_CFG_REMOVE`` entries):
+each lane's active view is the latest config entry in its ring, the two
+fused phases tally the leader's members against their quorum inside the
+kernel, and config changes are serialized at append. :func:`query_step`
+serves read-only ops from the leader's applied state without a log
+append. ``monotone_tag_accept`` and ``telemetry`` are not ported yet and
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -59,6 +64,8 @@ import torch
 
 from .apply import (
     NUM_POOLS,
+    OP_CFG_ADD,
+    OP_CFG_REMOVE,
     ResourceConfig,
     ResourceState,
     apply_entry,
@@ -66,7 +73,13 @@ from .apply import (
     drain_events,
     init_resources,
 )
-from .kernels import ack_commit, admit_submits, term_at_2d
+from .kernels import (
+    ack_commit,
+    admit_submits,
+    member_lanes,
+    popcount,
+    term_at_2d,
+)
 
 FOLLOWER, CANDIDATE, LEADER = 0, 1, 2
 
@@ -156,7 +169,7 @@ class Config(NamedTuple):
 
 def check_config(config: Config) -> None:
     """Raise for the config branches this package does not run yet."""
-    for name in ("dynamic_membership", "monotone_tag_accept", "telemetry"):
+    for name in ("monotone_tag_accept", "telemetry"):
         if getattr(config, name):
             raise NotImplementedError(
                 f"Config({name}=True) is not ported to copycat_tpu_torch yet")
@@ -172,9 +185,14 @@ def draw_timers(num_groups: int, num_peers: int, config: Config,
 
 
 def init_state(num_groups: int, num_peers: int, log_slots: int,
-               timer: torch.Tensor, config: Config = Config()) -> RaftState:
+               timer: torch.Tensor, config: Config = Config(),
+               members=None) -> RaftState:
     """Fresh state for G groups on ``timer``'s device; ``timer`` is the
-    ``[G, P]`` int32 initial election timeout of every lane."""
+    ``[G, P]`` int32 initial election timeout of every lane. ``members``
+    (optional, for ``config.dynamic_membership``): the initial voter set
+    as a ``[P]`` or ``[G, P]`` bool mask, the same view in every lane;
+    lanes outside it are standbys until an ``OP_CFG_ADD`` brings them
+    in."""
     check_config(config)
     G, P, L = num_groups, num_peers, log_slots
     if tuple(timer.shape) != (G, P) or timer.dtype != torch.int32:
@@ -189,6 +207,14 @@ def init_state(num_groups: int, num_peers: int, log_slots: int,
     def zl():
         return torch.zeros((G, P, L), **i32)
 
+    if members is None:
+        member = torch.full((G, P), (1 << P) - 1, **i32)
+    else:
+        m = torch.as_tensor(members, dtype=torch.bool, device=dev)
+        bits = (m.expand(G, P).to(torch.int32)
+                << torch.arange(P, **i32)).sum(dim=1, dtype=torch.int32)
+        member = bits[:, None].expand(G, P).contiguous()
+
     return RaftState(
         term=z2(), voted_for=z2() - 1, role=z2() + FOLLOWER,
         leader_hint=z2() - 1, timer=timer.clone(), clock=z2(),
@@ -199,7 +225,7 @@ def init_state(num_groups: int, num_peers: int, log_slots: int,
         log_time=zl(), log_tag=zl(),
         resources=init_resources(G, P, config.resource, device=dev),
         lease=torch.zeros((G, P), dtype=torch.bool, device=dev),
-        member=torch.full((G, P), (1 << P) - 1, **i32),
+        member=member,
     )
 
 
@@ -296,6 +322,53 @@ def current_leader(state: RaftState) -> tuple[torch.Tensor, torch.Tensor]:
     return torch.where(active, lead, -1), active
 
 
+def query_step(state: RaftState, queries: Submits,
+               atomic: torch.Tensor | None = None, config: Config = Config()
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Serve read-only ops from the leader's applied state — no log
+    append, no state written back.
+
+    A slot is served only where the group has a current leader that has
+    applied everything it committed and has committed an entry of its own
+    term (a fresh leader's commit index can trail what its predecessor
+    served, Raft §8), so reads are sequential: leader-local and monotone
+    per group. ``atomic [G,S]`` bool (optional) marks slots that need the
+    leader lease as well (bounded-linearizable reads). The pools are the
+    leader lane's, broadcast over the S slots as views; the apply kernels
+    write nothing in place, and the state they return is dropped.
+
+    Returns ``(results [G,S], served [G,S] bool)``; an unserved slot is
+    the caller's to retry or to send through the log.
+    """
+    G = state.term.shape[0]
+    dev = state.term.device
+    queries = _normalize_submits(queries, G, dev)
+    S = queries.valid.shape[1]
+    lead, active = current_leader(state)
+    l_applied = _peer_view(state.applied_index, lead)
+    l_commit = _peer_view(state.commit_index, lead)
+    l_term = _peer_view(state.term, lead)
+    l_last = _peer_view(state.last_index, lead)
+    l_log_term = _peer_view(state.log_term, lead)
+    commit_term = term_at_2d(l_log_term, l_last, l_commit[:, None])[:, 0]
+    current = active & (l_applied >= l_commit) & (commit_term == l_term)
+    served = queries.valid & current[:, None]
+    if atomic is not None:
+        leased = state.lease.any(dim=1)
+        atomic = torch.as_tensor(atomic, dtype=torch.bool, device=dev)
+        served = served & (~atomic | leased[:, None])
+
+    def slots(x: torch.Tensor) -> torch.Tensor:
+        lx = _peer_view(x, lead)
+        return lx[:, None].expand((G, S) + tuple(lx.shape[1:]))
+
+    lres = ResourceState(*(slots(x) for x in state.resources))
+    _, results = apply_entry(
+        lres, queries.opcode, queries.a, queries.b, queries.c,
+        torch.zeros_like(queries.opcode), slots(state.clock), served)
+    return torch.where(served, results, 0), served
+
+
 def _normalize_submits(submits: Submits, G: int, dev: torch.device
                        ) -> Submits:
     """Expand compact submit leaves to full ``[G, S]`` int32 tensors; the
@@ -352,6 +425,33 @@ def step(state: RaftState, submits: Submits, deliver: torch.Tensor,
 
     lead, active = current_leader(state)
 
+    # Dynamic membership views (the static path never reads state.member).
+    dyn = config.dynamic_membership
+    view = None
+    if dyn:
+        # Each lane's active config is the latest config entry in its log
+        # (adopted at append, reverted by truncation, Raft §4.1), else the
+        # applied-prefix mask. Entries in (applied, last] sit at ring slot
+        # (idx - 1) % L, so slot s holds index applied + 1 + ((s - applied)
+        # % L) inside that window.
+        s_m = torch.arange(L, dtype=i32, device=dev)[None, None, :]
+        off_m = (s_m - state.applied_index[..., None]) % L
+        win_m = off_m < (state.last_index - state.applied_index)[..., None]
+        cfg_m = win_m & ((state.log_op == OP_CFG_ADD)
+                         | (state.log_op == OP_CFG_REMOVE))      # [G,P,L]
+        key_m = torch.where(cfg_m,
+                            state.applied_index[..., None] + 1 + off_m, 0)
+        best_m = key_m.amax(dim=-1)                              # [G,P]
+        latest_mask = torch.where(cfg_m & (key_m == best_m[..., None]),
+                                  state.log_a, 0).sum(dim=-1, dtype=i32)
+        view = torch.where(best_m > 0, latest_mask, state.member)  # [G,P]
+        self_member = ((view >> peer_ids) & 1).bool()           # [G,P]
+        view_quorum = popcount(view) // 2 + 1                    # [G,P]
+        cfg_inflight = _peer_view(best_m > 0, lead)              # [G]
+        l_view = _peer_view(view, lead)                          # [G]
+        # which lanes the leader's active config counts
+        l_member = member_lanes(l_view, P)                       # [G,P]
+
     l_term = _peer_view(state.term, lead)          # [G]
     l_last = _peer_view(state.last_index, lead)    # [G]
     l_commit = _peer_view(state.commit_index, lead)
@@ -369,18 +469,48 @@ def step(state: RaftState, submits: Submits, deliver: torch.Tensor,
     # ---- phase 1: inject client submits into the leader log ----
     # Backpressure: never let the ring overwrite entries the leader itself
     # or a quorum-th replica still has to apply.
+    # Under dynamic membership the tally counts only the leader's members
+    # (``view``): non-member lanes never receive entries, so an unmasked
+    # tally would wedge backpressure and commit at their floor.
     accept_ok = active
     if config.lease_gated_accept:
         # last round's quorum-ack witness at the leader lane
         accept_ok = active & _peer_view(state.lease, lead)
+    valid = submits.valid
+    if dyn:
+        # Config-change append guard: ONE change in flight per group (two
+        # adjacent single-server configs always quorum-intersect; two
+        # concurrent ones need not, Raft §4.2), so a config submit is
+        # rejected (the host requeues it) while a config entry sits
+        # unapplied in the leader's log or another rides earlier in the
+        # window, and removing the last member is refused for good. The
+        # entry's ``a`` carries the FULL new mask, composed from the
+        # leader's view, so any lane adopts a config from one entry.
+        valid = valid & accept_ok[:, None]
+        is_cfg = (submits.opcode == OP_CFG_ADD) \
+            | (submits.opcode == OP_CFG_REMOVE)
+        in_range = (submits.a >= 0) & (submits.a < P)
+        bit = torch.where(in_range, 1 << submits.a.clamp(0, P - 1), 0)
+        new_mask = torch.where(submits.opcode == OP_CFG_ADD,
+                               l_view[:, None] | bit,
+                               l_view[:, None] & ~bit)             # [G,S]
+        first_cfg = (torch.cumsum(is_cfg & valid, dim=1, dtype=i32) == 1) \
+            & is_cfg
+        may = first_cfg & ~cfg_inflight[:, None]
+        refused = is_cfg & valid & may & (new_mask == 0)
+        cfg_rejected = is_cfg & valid & ~(may & (new_mask != 0))
+        # reject the window's suffix from a rejected config submit, so
+        # rejections stay hole-free and per-group FIFO holds
+        valid = (valid & (torch.cumsum(cfg_rejected, dim=1, dtype=i32) == 0)
+                 ).contiguous()
     applied = state.applied_index.contiguous()
     if config.ring_flow_control:
         # the floor counts from applied - 1: one entry fewer than the ring
-        admission = admit_submits(applied - 1, lead, accept_ok,
-                                  submits.valid, l_last, quorum, L)
+        admission = admit_submits(applied - 1, lead, accept_ok, valid,
+                                  l_last, quorum, L, view)
     else:
-        admission = admit_submits(applied, lead, accept_ok, submits.valid,
-                                  l_last, quorum, L)
+        admission = admit_submits(applied, lead, accept_ok, valid, l_last,
+                                  quorum, L, view)
     accepted = admission.accepted
     # Accepted slots land at distinct ring slots, so one scatter per log
     # array writes them all; rejected slots go to a spill column (slot L)
@@ -393,7 +523,8 @@ def step(state: RaftState, submits: Submits, deliver: torch.Tensor,
 
     l_log_term = _inject(l_log_term, l_term[:, None])
     l_log_op = _inject(l_log_op, submits.opcode)
-    l_log_a = _inject(l_log_a, submits.a)
+    l_log_a = _inject(l_log_a, torch.where(is_cfg, new_mask, submits.a)
+                      if dyn else submits.a)
     l_log_b = _inject(l_log_b, submits.b)
     l_log_c = _inject(l_log_c, submits.c)
     l_log_time = _inject(l_log_time, l_clock[:, None])
@@ -404,6 +535,10 @@ def step(state: RaftState, submits: Submits, deliver: torch.Tensor,
     del_fwd = _peer_view(deliver, lead)                      # deliver[g,lead,f]
     del_back = _peer_view(deliver.transpose(1, 2), lead)     # deliver[g,f,lead]
     recv = active[:, None] & (peer_ids[None, :] != lead[:, None]) & del_fwd
+    if dyn:
+        # leaders replicate only to members of their current config; a
+        # re-added lane catches up by rewind or a snapshot install
+        recv = recv & l_member
 
     prev = l_next - 1                                        # [G,P]
     # The leader can only serve entries still in its ring.
@@ -473,7 +608,7 @@ def step(state: RaftState, submits: Submits, deliver: torch.Tensor,
                    last_index=state.last_index.contiguous(),
                    l_match=l_match, l_next=l_next, lead=lead, active=active,
                    l_term=l_term, l_last=l_last, l_commit=l_commit,
-                   l_log_term=l_log_term, quorum=quorum)
+                   l_log_term=l_log_term, quorum=quorum, view=view)
     self_lane = peer_ids[None, :] == lead[:, None]
 
     # Scatter the leader view back into replica lanes.
@@ -511,6 +646,10 @@ def step(state: RaftState, submits: Submits, deliver: torch.Tensor,
         # NoOp it appends if it wins: its unapplied entries fill < L
         room = last2 - state.applied_index < L
         timeout = timeout & room
+    if dyn:
+        # lanes outside their own view never campaign: a removed server
+        # must not disrupt the group it left, nor a standby elect itself
+        timeout = timeout & self_member
 
     term_e = torch.where(timeout, term1 + 1, term1)
     voted_e = torch.where(timeout, peer_ids[None, :], voted1)
@@ -539,8 +678,15 @@ def step(state: RaftState, submits: Submits, deliver: torch.Tensor,
     choice = torch.where(elig, peer_ids[None, :, None], P).amin(dim=1)  # [G,V]
     voted_v = torch.where(choice < P, choice, voted_v)
     grant = elig & (peer_ids[None, :, None] == choice[:, None, :])
-    votes = grant.sum(dim=2, dtype=i32)                             # [G,C]
-    won = (role_v == CANDIDATE) & cand_mask & (votes >= quorum)
+    if dyn:
+        # a candidate counts only votes from lanes in ITS view, against
+        # that view's quorum (any lane may still grant a vote)
+        votes = (grant & member_lanes(view, P)).sum(dim=2, dtype=i32)
+        won = (role_v == CANDIDATE) & cand_mask & self_member \
+            & (votes >= view_quorum)
+    else:
+        votes = grant.sum(dim=2, dtype=i32)                         # [G,C]
+        won = (role_v == CANDIDATE) & cand_mask & (votes >= quorum)
     if config.ring_flow_control:
         won = won & room
 
@@ -595,6 +741,15 @@ def step(state: RaftState, submits: Submits, deliver: torch.Tensor,
         admitted = do_all
     applied = state.applied_index + admitted.sum(dim=-1, dtype=i32)
 
+    # Config entries take effect on each lane as it applies them, in
+    # window order; an entry's ``a`` is the full new mask.
+    member2 = state.member
+    if dyn:
+        cfg_w = (op_w == OP_CFG_ADD) | (op_w == OP_CFG_REMOVE)
+        for i in range(A):
+            member2 = torch.where(admitted[..., i] & cfg_w[..., i],
+                                  a_w[..., i], member2)
+
     # Reporting lane: the lane with the highest applied_index after this
     # round (the first such lane), so every result is reported at least
     # once, even when the group is leaderless.
@@ -613,6 +768,16 @@ def step(state: RaftState, submits: Submits, deliver: torch.Tensor,
         resources, config.events_per_round, active)
     lead_ev = active[:, None] & _peer_view(ev_ok, lead)
 
+    if dyn:
+        # A leader whose removal has applied steps down once BOTH its
+        # applied config and its active view exclude it (a lane that won
+        # on an appended-but-unapplied re-ADD keeps leading until it
+        # applies); a candidate outside its view stands down.
+        out_m2 = ~((member2 >> peer_ids) & 1).bool() & ~self_member
+        role_f = torch.where((role_f == LEADER) & out_m2, FOLLOWER, role_f)
+        role_f = torch.where((role_f == CANDIDATE) & ~self_member, FOLLOWER,
+                             role_f)
+
     term_f = torch.maximum(term_v, term_e)
     new_state = RaftState(
         term=term_f, voted_for=voted_v, role=role_f,
@@ -623,7 +788,7 @@ def step(state: RaftState, submits: Submits, deliver: torch.Tensor,
         log_c=log_c2, log_time=log_time2,
         log_tag=log_tag2, resources=resources,
         lease=lease_g[:, None].expand(G, P).clone(),
-        member=state.member)
+        member=member2)
 
     outputs = StepOutputs(
         accepted=accepted, out_valid=out_valid, out_tag=out_tag,
@@ -638,5 +803,5 @@ def step(state: RaftState, submits: Submits, deliver: torch.Tensor,
         out_index=torch.where(out_valid, rep3(idx_all), 0),
         out_term=torch.where(out_valid, rep3(ga(log_term2)), 0),
         leader_term=torch.where(role_f == LEADER, term_f, -1).amax(dim=1),
-        refused=torch.zeros_like(submits.valid))
+        refused=refused if dyn else torch.zeros_like(submits.valid))
     return new_state, outputs

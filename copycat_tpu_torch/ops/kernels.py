@@ -18,6 +18,12 @@ runs twice per consensus round. Counterpart of
   the leader lease and the quorum commit advance
   (``csrc/quorum_phase.cu``).
 
+Under dynamic membership both fused phases take ``view [G, P]`` int32, each
+lane's active-config bitmask: the tally then runs over the leader lane's
+members with a per-group quorum (``kth_largest_masked``), and the lease
+counts member acks only. Without it they tally all P lanes against one
+scalar ``quorum``.
+
 Each of the last three dispatches on the device of its tensors: a CPU
 tensor takes the plain version (``*_plain``), a CUDA tensor launches the
 hand-written kernel (``*_cuda``) or raises; any other device raises. Each
@@ -61,9 +67,9 @@ ENTRY_POINTS = {
     "kth_largest.cu": {
         "kth_largest_launch": [_PTR, _PTR, _INT, _INT, _INT, _PTR]},
     "quorum_phase.cu": {
-        "admit_submits_launch": [_PTR] * 9 + [_INT] * 5 + [_PTR],
+        "admit_submits_launch": [_PTR] * 10 + [_INT] * 5 + [_PTR],
         "ack_commit_launch": ([_PTR] * 18 + [ctypes.c_longlong]
-                              + [_PTR] * 6 + [_INT] * 4 + [_PTR])},
+                              + [_PTR] * 7 + [_INT] * 4 + [_PTR])},
 }
 
 _libs: dict[pathlib.Path, ctypes.CDLL] = {}   # loaded once per source
@@ -104,6 +110,33 @@ def kth_largest_masked(x: torch.Tensor, mask: torch.Tensor,
     return torch.where(sel, xm, 0).sum(dim=1, dtype=torch.int32)
 
 
+def popcount(x: torch.Tensor) -> torch.Tensor:
+    """Set bits of every int32 element (all 32, as
+    ``jax.lax.population_count`` counts them), as int32."""
+    v = x.to(torch.int64) & 0xFFFFFFFF
+    v = v - ((v >> 1) & 0x55555555)
+    v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
+    v = (v + (v >> 4)) & 0x0F0F0F0F
+    return (((v * 0x01010101) & 0xFFFFFFFF) >> 24).to(torch.int32)
+
+
+def member_lanes(mask: torch.Tensor, P: int) -> torch.Tensor:
+    """Bits 0..P-1 of ``mask [...]`` int32 as a ``[..., P]`` bool."""
+    ids = torch.arange(P, dtype=torch.int32, device=mask.device)
+    return ((mask[..., None] >> ids) & 1).bool()
+
+
+def leader_members(view: torch.Tensor, lead: torch.Tensor
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The leader lane's membership: ``(l_member [G, P] bool, l_quorum
+    [G] int32)`` from ``view [G, P]`` at lane ``lead`` (a leaderless
+    group's -1 reads lane 0)."""
+    g_ids = torch.arange(view.shape[0], device=view.device)
+    l_view = view[g_ids, lead.clamp(min=0).long()]
+    return (member_lanes(l_view, view.shape[1]),
+            popcount(l_view) // 2 + 1)
+
+
 def term_at_2d(log_term: torch.Tensor, last: torch.Tensor,
                idx: torch.Tensor) -> torch.Tensor:
     """Term lookup on a [G,L] ring at idx [G,P] (0 outside the live window)."""
@@ -125,16 +158,22 @@ class Admission(NamedTuple):
 def admit_submits_plain(applied: torch.Tensor, lead: torch.Tensor,
                         accept_ok: torch.Tensor, valid: torch.Tensor,
                         l_last: torch.Tensor, quorum: int,
-                        L: int) -> Admission:
+                        L: int, view: torch.Tensor | None = None
+                        ) -> Admission:
     """Phase 1 of the step in torch: the backpressure floor — the lower of
     the leader's and the quorum-th replica's ``applied [G,P]``, plus the
     ring size L — and the submits ``valid [G,S]`` of groups whose leader
     may accept (``accept_ok [G]``) that fit under it, appended after
     ``l_last [G]``. ``lead [G]`` is -1 for a leaderless group, which reads
-    lane 0 (its ``accept_ok`` is False)."""
+    lane 0 (its ``accept_ok`` is False). With ``view`` the quorum-th is
+    taken among the leader lane's members, with their quorum
+    (reference ``consensus.py:643``)."""
     g_ids = torch.arange(applied.shape[0], device=applied.device)
     l_applied = applied[g_ids, lead.clamp(min=0).long()]
-    q_applied = kth_largest_plain(applied, quorum)
+    if view is None:
+        q_applied = kth_largest_plain(applied, quorum)
+    else:
+        q_applied = kth_largest_masked(applied, *leader_members(view, lead))
     allowed_last = torch.minimum(l_applied, q_applied) + L
     valid = valid & accept_ok[:, None]
     pos = l_last[:, None] + torch.cumsum(valid, dim=1, dtype=torch.int32)
@@ -166,14 +205,17 @@ def ack_commit_plain(*, recv: torch.Tensor, reject_term: torch.Tensor,
                      lead: torch.Tensor, active: torch.Tensor,
                      l_term: torch.Tensor, l_last: torch.Tensor,
                      l_commit: torch.Tensor, l_log_term: torch.Tensor,
-                     quorum: int) -> AckCommit:
+                     quorum: int, view: torch.Tensor | None = None
+                     ) -> AckCommit:
     """Phase 3 of the step in torch: the followers' acks (``[G,P]`` lanes
     of phase 2) update the leader's matchIndex/nextIndex; a quorum of
     same-term acks (the leader's own lane included) is the lease; the
     quorum-th matchIndex, with the leader's ``l_last`` in its own lane,
     commits when its term in the leader's ring ``l_log_term [G,L]`` is the
     leader's. ``lead [G]`` is -1 for a leaderless group, which has no self
-    lane."""
+    lane. With ``view`` the acks and the quorum-th count the leader lane's
+    members only, against their quorum (reference ``consensus.py:826-829``).
+    """
     P = recv.shape[1]
     ack_seen = (recv | reject_term) & del_back
     leader_stale = active & (ack_seen & (term1 > l_term[:, None])).any(dim=1)
@@ -194,9 +236,16 @@ def ack_commit_plain(*, recv: torch.Tensor, reject_term: torch.Tensor,
     # Leader lease: a quorum of same-term acks this round (self included)
     # with no higher term observed.
     match_full = torch.where(self_lane, l_last[:, None], l_match)
-    acked = (ack_success | self_lane).sum(dim=1, dtype=torch.int32)
-    lease_g = active & ~leader_stale & (acked >= quorum)
-    cand_commit = kth_largest_plain(match_full, quorum)
+    if view is None:
+        acked = (ack_success | self_lane).sum(dim=1, dtype=torch.int32)
+        lease_g = active & ~leader_stale & (acked >= quorum)
+        cand_commit = kth_largest_plain(match_full, quorum)
+    else:
+        l_member, l_quorum = leader_members(view, lead)
+        acked = ((ack_success | self_lane) & l_member).sum(
+            dim=1, dtype=torch.int32)
+        lease_g = active & ~leader_stale & (acked >= l_quorum)
+        cand_commit = kth_largest_masked(match_full, l_member, l_quorum)
     cand_commit_term = term_at_2d(l_log_term, l_last,
                                   cand_commit[:, None])[:, 0]
     advance = active & ~leader_stale & (cand_commit > l_commit) \
@@ -301,6 +350,11 @@ def _launched(what: str, err: int) -> None:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
 
 
+def _ptr(t: torch.Tensor | None) -> int | None:
+    """A tensor's device address, or NULL for an absent optional one."""
+    return None if t is None else t.data_ptr()
+
+
 def _stream(t: torch.Tensor) -> int:
     """The raw handle of the current stream on ``t``'s card (what
     ``torch.cuda.current_stream(t.device).cuda_stream`` is, without
@@ -356,7 +410,8 @@ def kth_largest_cuda(x: torch.Tensor, k: int) -> torch.Tensor:
 def admit_submits_cuda(applied: torch.Tensor, lead: torch.Tensor,
                        accept_ok: torch.Tensor, valid: torch.Tensor,
                        l_last: torch.Tensor, quorum: int,
-                       L: int) -> Admission:
+                       L: int, view: torch.Tensor | None = None
+                       ) -> Admission:
     """Launch the fused phase-1 kernel (``admit_submits_plain``'s function)
     on the current stream. Every tensor is contiguous on one card."""
     if applied.device.type != "cuda":
@@ -377,15 +432,17 @@ def admit_submits_cuda(applied: torch.Tensor, lead: torch.Tensor,
     _check("admit_submits_cuda", dev, (
         ("applied", applied, i32, (G, P)), ("lead", lead, i32, (G,)),
         ("accept_ok", accept_ok, b8, (G,)), ("valid", valid, b8, (G, S)),
-        ("l_last", l_last, i32, (G,))))
+        ("l_last", l_last, i32, (G,)))
+        + ((("view", view, i32, (G, P)),) if view is not None else ()))
     launch = _entry(PHASE_SOURCE, "admit_submits_launch")
     accepted = torch.empty((G, S), dtype=b8, device=dev)
     ints = torch.empty(G * S + G, dtype=i32, device=dev)
     assigned, l_last_out = ints[:G * S].view(G, S), ints[G * S:]
     slot = torch.empty((G, S), dtype=torch.int64, device=dev)
     _launched("admit_submits", launch(
-        applied.data_ptr(), lead.data_ptr(), accept_ok.data_ptr(),
-        valid.data_ptr(), l_last.data_ptr(), accepted.data_ptr(),
+        applied.data_ptr(), _ptr(view), lead.data_ptr(),
+        accept_ok.data_ptr(), valid.data_ptr(), l_last.data_ptr(),
+        accepted.data_ptr(),
         assigned.data_ptr(), slot.data_ptr(), l_last_out.data_ptr(),
         G, P, S, quorum, L, _stream(applied)))
     admit_submits.launches += 1
@@ -401,7 +458,8 @@ def ack_commit_cuda(*, recv: torch.Tensor, reject_term: torch.Tensor,
                     lead: torch.Tensor, active: torch.Tensor,
                     l_term: torch.Tensor, l_last: torch.Tensor,
                     l_commit: torch.Tensor, l_log_term: torch.Tensor,
-                    quorum: int) -> AckCommit:
+                    quorum: int, view: torch.Tensor | None = None
+                    ) -> AckCommit:
     """Launch the fused phase-3 kernel (``ack_commit_plain``'s function)
     on the current stream. Every tensor is contiguous on one card, except
     ``l_log_term [G, L]``, whose rows need only be dense: the step's ring
@@ -430,6 +488,8 @@ def ack_commit_cuda(*, recv: torch.Tensor, reject_term: torch.Tensor,
            ("active", active, b8, (G,)), ("l_term", l_term, i32, (G,)),
            ("l_last", l_last, i32, (G,)), ("l_commit", l_commit, i32, (G,)))
     _check("ack_commit_cuda", dev, ins)
+    if view is not None:
+        _check("ack_commit_cuda", dev, (("view", view, i32, (G, P)),))
     if l_log_term.device != recv.device or l_log_term.dtype != i32 \
             or l_log_term.shape[0] != G or l_log_term.stride(1) != 1:
         raise ValueError(
@@ -447,8 +507,8 @@ def ack_commit_cuda(*, recv: torch.Tensor, reject_term: torch.Tensor,
                     l_commit_out)
     _launched("ack_commit", launch(
         *(t.data_ptr() for _, t, _, _ in ins), l_log_term.data_ptr(),
-        l_log_term.stride(0), *(o.data_ptr() for o in out), G, P, quorum, L,
-        _stream(recv)))
+        l_log_term.stride(0), _ptr(view), *(o.data_ptr() for o in out), G,
+        P, quorum, L, _stream(recv)))
     ack_commit.launches += 1
     return out
 
@@ -469,12 +529,13 @@ def kth_largest(x: torch.Tensor, k: int) -> torch.Tensor:
 
 def admit_submits(applied: torch.Tensor, lead: torch.Tensor,
                   accept_ok: torch.Tensor, valid: torch.Tensor,
-                  l_last: torch.Tensor, quorum: int, L: int) -> Admission:
+                  l_last: torch.Tensor, quorum: int, L: int,
+                  view: torch.Tensor | None = None) -> Admission:
     """Phase 1 (``admit_submits_plain``): the plain version on CPU
     tensors, the fused CUDA kernel on CUDA tensors."""
     fn = admit_submits_plain if _on("admit_submits", applied) == "cpu" \
         else admit_submits_cuda
-    return fn(applied, lead, accept_ok, valid, l_last, quorum, L)
+    return fn(applied, lead, accept_ok, valid, l_last, quorum, L, view)
 
 
 def ack_commit(**kw) -> AckCommit:

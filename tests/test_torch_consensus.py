@@ -256,8 +256,7 @@ def test_current_leader_ties_go_to_first_lane():
     assert active.tolist() == [True, True, False]
 
 
-@pytest.mark.parametrize("name", ["dynamic_membership", "monotone_tag_accept",
-                                  "telemetry"])
+@pytest.mark.parametrize("name", ["monotone_tag_accept", "telemetry"])
 def test_unported_config_branches_raise(name):
     cfg = tcons.Config(resource=tap.ResourceConfig.counters_only(),
                        **{name: True})
@@ -267,13 +266,15 @@ def test_unported_config_branches_raise(name):
 
 
 def test_every_pool_and_budgets_are_accepted():
-    """``check_config`` refuses only the three branches still to come."""
+    """``check_config`` refuses only the two branches still to come;
+    ``dynamic_membership`` runs."""
     cfg = convert.config_to_torch(jcons.Config(pool_budgets=(1,) * 8))
     assert cfg.resource == tcons.Config().resource
     tcons.check_config(cfg)
     state = tcons.init_state(2, 3, 8, torch.full((2, 3), 5,
                                                  dtype=torch.int32), cfg)
     assert state.resources.map_key.shape == (2, 3, 16)
+    tcons.check_config(cfg._replace(dynamic_membership=True))
 
 
 def test_convert_round_trips_both_ways():

@@ -127,8 +127,58 @@ def test_bench_cli_needs_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         bench.main(["--scenario", "mixed", "--groups", "4", "--peers", "5",
                     "--rounds", "1", "--repeats", "1"])
+    for scenario in ("election", "map_read"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            bench.main(["--scenario", scenario, "--groups", "4",
+                        "--rounds", "1", "--repeats", "1"])
     with pytest.raises(SystemExit):
-        bench.main(["--scenario", "election"])
+        bench.main(["--scenario", "host"])
+    with pytest.raises(SystemExit):
+        bench.main(["--scenario", "map_read", "--read-level", "causal"])
+
+
+def test_new_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
+    _no_cuda(monkeypatch)
+    from copycat_tpu_torch.ops.consensus import Config
+    dyn = Config(dynamic_membership=True)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        RaftGroups(4, 5, config=dyn, voters=3)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        bench.run_election(groups=4, rounds=1, repeats=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        bench.run_map_read("atomic", groups=4, rounds=1, repeats=1)
+    rg = RaftGroups(4, 5, config=dyn, voters=3, device="cpu")
+    assert rg.sessions.open_session().id >= 1 << 30
+
+
+@pytest.mark.parametrize("read_level", ["sequential", "atomic"])
+def test_map_read_runs_on_the_cpu(read_level):
+    out = bench.run_map_read(read_level, groups=6, rounds=12, repeats=1,
+                             device="cpu")
+    assert out["device"] == "cpu" and out["read_level"] == read_level
+    assert out["served_reads"] > 0 and out["wrong_reads"] == 0
+    assert out["value"] > 0
+    assert out["launches_per_round"] == dict.fromkeys(bench.KERNELS, 0.0)
+
+
+def test_election_runs_on_the_cpu_and_checks_safety(monkeypatch):
+    out = bench.run_election(groups=12, rounds=45, repeats=1, device="cpu")
+    assert out["value"] > 0 and out["two_leaders_in_a_term"] == 0
+    assert out["shape"]["nemesis"] == {"period": 15, "seed": 2}
+    # a step that makes two lanes of group 0 lead in one term is caught
+    real = bench.step
+
+    def two_leaders(state, *args):
+        state, out = real(state, *args)
+        role = state.role.clone()
+        role[0, :2] = 2
+        term = state.term.clone()
+        term[0, 1] = term[0, 0]
+        return state._replace(role=role, term=term), out
+
+    monkeypatch.setattr(bench, "step", two_leaders)
+    out = bench.run_election(groups=4, rounds=3, repeats=1, device="cpu")
+    assert out["two_leaders_in_a_term"] > 0
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):

@@ -13,7 +13,11 @@ the same numpy-seeded inputs (``copycat_tpu_torch/cases.py``), for P ∈ {3,
 - phase 3, acks to the commit advance: reference lines 807-838, with the
   tally from the Pallas kernel ``kth_largest_pallas`` in interpret mode
   (the TPU kernel the fused kernels replace) and the reference's
-  ``_term_at_2d``.
+  ``_term_at_2d``;
+- both phases under dynamic membership, with ``view`` (``cases.
+  member_views``): the reference's ``kth_largest_masked`` over the leader
+  lane's members with the per-group quorum ``l_quorum`` (lines 605-611,
+  643-644 and 826-829).
 
 The CUDA kernels are held against the plain versions by the ``cuda``-marked
 tests at the end, which need no JAX (the reference is imported only where
@@ -44,15 +48,33 @@ def _torch(case: dict) -> dict:
             for k, v in case.items()}
 
 
-def _ref_admit(ref, c: dict, quorum: int):
-    """Reference 642-647, 654 and 708-713 (static path), on jnp."""
+def _ref_members(ref, view, lead):
+    """Reference 605-611: the leader lane's members and their quorum."""
+    import jax
+    import jax.numpy as jnp
+    jcons, _ = ref
+    P = view.shape[1]
+    view, lead = jnp.asarray(view), jnp.asarray(lead)
+    view_quorum = jax.lax.population_count(view) // 2 + 1
+    l_view = jcons._peer_view(view, lead)
+    l_member = ((l_view[:, None] >> jnp.arange(P)[None, :]) & 1).astype(bool)
+    return l_member, jcons._peer_view(view_quorum, lead)
+
+
+def _ref_admit(ref, c: dict, quorum: int, view=None):
+    """Reference 642-647, 654 and 708-713 (the static tally, or with
+    ``view`` the masked one), on jnp."""
     import jax.numpy as jnp
     jcons, jpk = ref
     applied, lead = jnp.asarray(c["applied"]), jnp.asarray(c["lead"])
     l_last = jnp.asarray(c["l_last"])
     l_applied = jcons._peer_view(applied, lead)
-    q_applied = jpk.kth_largest_pallas(applied, quorum, block=128,
-                                       interpret=True)
+    if view is None:
+        q_applied = jpk.kth_largest_pallas(applied, quorum, block=128,
+                                           interpret=True)
+    else:
+        q_applied = jpk.kth_largest_masked(applied,
+                                           *_ref_members(ref, view, lead))
     allowed_last = jnp.minimum(l_applied, q_applied) + L
     valid = jnp.asarray(c["valid"]) & jnp.asarray(c["accept_ok"])[:, None]
     pos = l_last[:, None] + jnp.cumsum(valid.astype(jnp.int32), axis=1)
@@ -63,9 +85,10 @@ def _ref_admit(ref, c: dict, quorum: int):
                 l_last=l_last + accepted.sum(axis=1, dtype=jnp.int32))
 
 
-def _ref_ack(ref, c: dict, quorum: int):
-    """Reference 807-838 (static path), on jnp; also returns the commit
-    candidate, so the test can see which edge cases the inputs hit."""
+def _ref_ack(ref, c: dict, quorum: int, view=None):
+    """Reference 807-838 (the static path, or with ``view`` the masked
+    one), on jnp; also returns the commit candidate, so the test can see
+    which edge cases the inputs hit."""
     import jax.numpy as jnp
     jcons, jpk = ref
     j = {k: jnp.asarray(v) for k, v in c.items()}
@@ -90,10 +113,16 @@ def _ref_ack(ref, c: dict, quorum: int):
     peer_ids = jnp.arange(P, dtype=jnp.int32)
     self_lane = peer_ids[None, :] == lead[:, None]
     match_full = jnp.where(self_lane, l_last[:, None], l_match)
-    acked = jnp.sum(ack_success | self_lane, axis=1)
-    lease_g = active & ~leader_stale & (acked >= quorum)
-    cand_commit = jpk.kth_largest_pallas(match_full, quorum, block=128,
-                                         interpret=True)
+    if view is None:
+        acked = jnp.sum(ack_success | self_lane, axis=1)
+        lease_g = active & ~leader_stale & (acked >= quorum)
+        cand_commit = jpk.kth_largest_pallas(match_full, quorum, block=128,
+                                             interpret=True)
+    else:
+        l_member, l_quorum = _ref_members(ref, view, lead)
+        acked = jnp.sum((ack_success | self_lane) & l_member, axis=1)
+        lease_g = active & ~leader_stale & (acked >= l_quorum)
+        cand_commit = jpk.kth_largest_masked(match_full, l_member, l_quorum)
     cand_commit_term = jcons._term_at_2d(j["l_log_term"], l_last,
                                          cand_commit[:, None])[:, 0]
     advance = active & ~leader_stale & (cand_commit > l_commit) \
@@ -148,6 +177,33 @@ def test_ack_commit_matches_reference(ref, P):
     # duplicate matchIndex values in the random rows too
     srt = np.sort(c["l_match"], axis=1)
     assert (srt[:, 1:] == srt[:, :-1]).any(axis=1).mean() > 0.3
+
+
+@pytest.mark.parametrize("P", [3, 5, 7])
+def test_masked_phases_match_reference(ref, P):
+    """Both phases with a member view: the masked tally with a per-group
+    quorum, the lease over member acks."""
+    rng = np.random.default_rng(20 + P)
+    a = cases.admit_case(rng, G, P, S, L)
+    a_view = cases.member_views(rng, a["lead"], P)
+    want = _ref_admit(ref, a, 0, a_view)
+    got = kernels.admit_submits(**_torch(a), quorum=P // 2 + 1, L=L,
+                                view=torch.from_numpy(a_view))
+    _assert_equal(got, want, int64=("slot",))
+    k = cases.ack_case(rng, G, P, L)
+    k_view = cases.member_views(rng, k["lead"], P)
+    want, cand = _ref_ack(ref, k, 0, k_view)
+    got = kernels.ack_commit(**_torch(k), quorum=P // 2 + 1,
+                             view=torch.from_numpy(k_view))
+    _assert_equal(got, want)
+    # the masked tally differs from the static one somewhere, and a
+    # leader outside its own view still commits by its members' acks
+    static = kernels.ack_commit(**_torch(k), quorum=P // 2 + 1)
+    assert (static.l_commit != got.l_commit).any()
+    ld = np.maximum(k["lead"], 0)
+    outside = ~((k_view[np.arange(G), ld] >> ld) & 1).astype(bool)
+    advanced = np.asarray(want["l_commit"]) != k["l_commit"]
+    assert (outside & advanced).any()
 
 
 def test_fused_phases_take_the_plain_versions_only_on_cpu():
@@ -222,3 +278,28 @@ def test_ack_commit_cuda_matches_plain(cuda_device, P):
         g = getattr(got, name).cpu()
         assert g.dtype == w.dtype, name
         assert torch.equal(g, w), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", [3, 5, 7])
+def test_masked_kernels_cuda_match_plain(cuda_device, P):
+    """Both fused kernels with a member view, and the static path beside
+    them, equal their plain versions bit for bit."""
+    rng = np.random.default_rng(30 + P)
+    a = cases.admit_case(rng, 10_001, P, 16, 64)
+    a["view"] = cases.member_views(rng, a["lead"], P)
+    k = cases.ack_case(rng, 10_001, P, 64)
+    k["view"] = cases.member_views(rng, k["lead"], P)
+    for fn, plain, case, kw in (
+            (kernels.admit_submits, kernels.admit_submits_plain, a,
+             dict(quorum=P // 2 + 1, L=64)),
+            (kernels.ack_commit, kernels.ack_commit_plain, k,
+             dict(quorum=P // 2 + 1))):
+        c = _torch(case)
+        want = plain(**c, **kw)
+        before = fn.launches
+        got = fn(**{n: t.to(cuda_device) for n, t in c.items()}, **kw)
+        assert fn.launches == before + 1
+        for name, w in want._asdict().items():
+            g = getattr(got, name).cpu()
+            assert g.dtype == w.dtype and torch.equal(g, w), name

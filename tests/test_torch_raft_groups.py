@@ -26,6 +26,7 @@ from copycat_tpu.models import RaftGroups as JaxRaftGroups  # noqa: E402
 from copycat_tpu.ops import apply as jap  # noqa: E402
 from copycat_tpu.ops.consensus import Config as JaxConfig  # noqa: E402
 
+import torch_reference  # noqa: E402
 from copycat_tpu_torch import convert  # noqa: E402
 from copycat_tpu_torch.models import RaftGroups  # noqa: E402
 
@@ -33,26 +34,12 @@ G, P, L, S = 16, 3, 16, 4
 JCFG = JaxConfig(resource=jap.ResourceConfig.counters_only())
 
 
-class ReferenceDrawnGroups(RaftGroups):
+class ReferenceDrawnGroups(torch_reference.ReferenceDrawnGroups):
     """The port's engine drawing its election timers exactly as the
     reference's ``RaftGroups`` does from the same seed."""
 
     def __init__(self, seed=0, jcfg=JCFG):
-        super().__init__(G, P, log_slots=L, submit_slots=S,
-                         config=convert.config_to_torch(jcfg), seed=seed,
-                         device="cpu")
-        self._key, init_key = jax.random.split(jax.random.PRNGKey(seed))
-        self.state = self.state._replace(timer=self._randint(init_key))
-
-    def _randint(self, key):
-        cfg = self.config
-        return torch.tensor(np.asarray(jax.random.randint(
-            key, (G, P), cfg.timer_min, cfg.timer_max)))
-
-    def _draw_timers(self):
-        self._key, key = jax.random.split(self._key)
-        key_t, key_c = jax.random.split(key)
-        return self._randint(key_t), self._randint(key_c)
+        super().__init__(G, P, L, S, jcfg, seed=seed)
 
 
 def _isolate(victims):
@@ -213,3 +200,42 @@ def test_all_pool_stream_gives_the_same_results_and_events():
     assert port.events == ref.events
     codes = {e[1] for evs in port.events.values() for e in evs}
     assert codes == {jap.EV_LOCK_GRANT, jap.EV_ELECT, jap.EV_TOPIC_MSG}
+
+
+def test_drive_vector_and_step_rounds_match_reference():
+    """``drive_vector`` returns the reference's results (each group's
+    prefix sums, correlated from the step outputs), and ``step_rounds(n)``
+    — n rounds, one fetch, the draws taken as the reference's fused
+    program takes them — leaves the reference's state, results and round
+    count."""
+    assert_same_state = torch_reference.assert_same_state
+    ref = JaxRaftGroups(G, P, log_slots=L, submit_slots=S, config=JCFG)
+    port = ReferenceDrawnGroups()
+    engines = [ref, port]
+    for rg in engines:
+        rg.wait_for_leaders()
+    rng = np.random.default_rng(8)
+    g = np.repeat(np.arange(G), rng.integers(0, S + 1, G))
+    d = rng.integers(1, 50, g.size)
+    z = np.zeros_like(g)
+    got = [rg.drive_vector(g, z + jap.OP_LONG_ADD, d, z, z)
+           for rg in engines]
+    np.testing.assert_array_equal(got[1], got[0])
+    totals = np.zeros(G, np.int64)
+    for i, (gi, di) in enumerate(zip(g, d)):
+        totals[gi] += di
+        assert got[1][i] == totals[gi]
+    assert_same_state(ref, port, "after drive_vector")
+    for n in (8, 1):
+        rows = rng.integers(0, G, 10)
+        tags = [list(rg.submit_batch(rows, jap.OP_LONG_ADD, 1))
+                for rg in engines]
+        assert tags[0] == tags[1]
+        for rg in engines:
+            rg.step_rounds(n)
+        assert port.rounds == ref.rounds
+        assert_same_state(ref, port, f"after step_rounds({n})")
+    for rg in engines:
+        rg.run(2)
+    assert port.results == ref.results
+    assert all(t in port.results for t in tags[0])
