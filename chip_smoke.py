@@ -64,7 +64,7 @@ Phases, each of which raises (and so exits non-zero) on failure:
     launches per round;
 11. mixed bench — BASELINE config #5 at full width (G=100,000 × P=5 ×
     L=32 × S=16) under the partition nemesis, budgets 4,6,4,6,4,4,4,4,
-    timers 2-4: committed ops/s, ms/round, p50/p99 commit latency, one
+    timers 2-4, 200 rounds × 3 repetitions (the reference runs 5): committed ops/s, ms/round, p50/p99 commit latency, one
     launch of each fused kernel per round, and replicas at equal applied
     index holding equal resource leaves; the fused kernels timed on the
     mixed step's inputs; the apply's time per round; a profiler window;
@@ -76,7 +76,25 @@ Phases, each of which raises (and so exits non-zero) on failure:
     value the puts wrote;
 14. elections — the ``election`` cell (G=1,000 × P=3, isolation nemesis
     with period 15, seed 2, 200 rounds × 5), with no term of any group
-    led by two lanes.
+    led by two lanes;
+15. deep path — ``deep_scan`` on the card and on the CPU from one state
+    and one set of draws, G=1,000 × P=3, L=64, S=16, counters only,
+    telemetry on, the monotone tag gate, 8 windows of dense tags and 3
+    settle rounds under random message loss: every state, accumulator,
+    event and telemetry leaf equal, one launch of each fused kernel a
+    round;
+16. host bench — the reference's north-star cell through ``BulkDriver``:
+    G=10,000 × P=3 × L=64 × S=16, counters only, 128 ops per group a
+    drive (1.28M ops), a warm-up and 5 timed drives in each of the modes
+    ``deep``, ``deepscan`` and ``bulk``, and ``queued`` at 16 ops per
+    group; after each, every group's counter equals the ops committed to
+    it (exactly once), and each fused kernel launched once a round; one
+    ``deep`` drive with telemetry on, whose summed ``commit_advance``
+    covers the drive with no invariant violation; a profiler window of
+    one deep drive (idle share, launches per round);
+17. ``host_read`` — 128 reads per group at both read levels, every read
+    7; ``session`` — 16 sessions, 128 ops per group a flush, group 0's
+    counter exactly once.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a card it exits non-zero and
@@ -96,7 +114,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 SCALAR_OPS_PER_S = 67e12        # H100 SXM 32-bit rate outside the tensor cores
 MIXED = dict(scenario="mixed", groups=100_000, peers=5)
-MIXED_ROUNDS, MIXED_REPEATS = 200, 5    # the reference's
+MIXED_ROUNDS, MIXED_REPEATS = 200, 3    # the reference runs 200 x 5
 SHORT_ROUNDS, SHORT_REPEATS = 20, 2
 QUERY_ROUNDS, QUERY_REPEATS = 100, 3    # the reference runs 200 x 5
 ELECTION_ROUNDS, ELECTION_REPEATS = 200, 5
@@ -1032,14 +1050,21 @@ def phase_profile(bench, dev, card: str, rounds: int = 20,
 def profile_rounds(run, rounds: int, what: str, card: str) -> dict:
     """``run(r0, n)`` steps rounds r0..r0+n-1: five warm-up rounds, then
     ``rounds`` under ``torch.profiler``."""
+    run(0, 5)
+    return profiled(lambda: run(5, rounds), lambda _: rounds, what, card)
+
+
+def profiled(fn, rounds_of, what: str, card: str) -> dict:
+    """``fn()`` under ``torch.profiler``: wall time, summed kernel time, the
+    device's idle share and kernel launches, each per round of the
+    ``rounds_of(fn())`` rounds it ran, and the top kernels."""
     from torch.profiler import ProfilerActivity, profile
 
-    run(0, 5)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run(5, rounds)
+        rounds = rounds_of(fn())
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / rounds
     evs = prof.key_averages()
@@ -1055,7 +1080,7 @@ def profile_rounds(run, rounds: int, what: str, card: str) -> dict:
     say(f"profile ({what}, on {card}, profiler on): wall "
         f"{wall_ms:.3f} ms/round, kernel time {busy_ms:.3f} ms/round, device "
         f"idle share {1 - busy_ms / wall_ms:.4f}, {launches:.1f} kernel "
-        f"launches/round")
+        f"launches/round over {rounds} rounds")
     for e in sorted(kern, key=lambda e: e.self_device_time_total,
                     reverse=True)[:8]:
         say(f"profile:   {e.self_device_time_total / 1e3 / rounds:.4f} "
@@ -1077,6 +1102,180 @@ def profile_serve(rg, ap, card: str, what: str, rounds: int = 10) -> dict:
     return profile_rounds(run, rounds, f"{rounds} {what} rounds, G={G} "
                           f"P={rg.num_peers} L={rg.log_slots} S=16, host "
                           "bookkeeping included", card)
+
+
+def phase_deep_path(cons, convert, ks: dict, dev, G: int = 1_000,
+                    P: int = 3, L: int = 64, S: int = 16,
+                    windows: int = 8) -> dict:
+    """``deep_scan`` on the card against the CPU from one state and one
+    set of draws: leaders elected on the CPU first, then ``windows`` dense
+    tag windows (every group's next S tags, random payloads and lengths)
+    and 3 settle rounds under random message loss."""
+    from copycat_tpu_torch.ops.apply import OP_LONG_ADD, ResourceConfig
+    cfg = cons.Config(append_window=S, applies_per_round=S,
+                      resource=ResourceConfig.counters_only(),
+                      monotone_tag_accept=True, telemetry=True)
+    rng = np.random.default_rng(8)
+
+    def draws():
+        return torch.from_numpy(rng.integers(cfg.timer_min, cfg.timer_max,
+                                             (G, P)).astype(np.int32))
+
+    state = cons.init_state(G, P, L, draws(), cfg)
+    empty = cons.make_submits(G, S, "cpu")
+    full = cons.full_delivery(G, P, "cpu")
+    for _ in range(40):
+        state, out = cons.step(state, empty, full, draws(), draws(), cfg)
+    if not bool((out.leader >= 0).all()):
+        raise AssertionError("deep path: not every group elected a leader")
+    W = windows + 3
+    take = np.minimum(rng.integers(0, S + 1, (windows, G)), S)
+    base = np.cumsum(np.concatenate([np.zeros((1, G), np.int64), take]),
+                     axis=0)
+    valid = np.zeros((W, G, S), bool)
+    valid[:windows] = np.arange(S)[None, None, :] < take[..., None]
+    tag = np.zeros((W, G, 1), np.int32)
+    tag[:windows, :, 0] = base[:windows] + 1
+    sub_np = dict(opcode=np.full((W, G, S), OP_LONG_ADD, np.int32),
+                  a=rng.integers(1, 9, (W, G, S)).astype(np.int32),
+                  b=np.zeros((W, G, S), np.int32),
+                  c=np.zeros((W, G, S), np.int32), tag=tag, valid=valid)
+    deliver = rng.random((G, P, P)) < 0.95
+    timers = [(draws(), draws()) for _ in range(W)]
+    B = 128
+    acc = (np.zeros((G, B), np.int32), np.zeros((G, B), bool),
+           np.full((G, B), 2 ** 30, np.int32), np.zeros(G, bool))
+    runs = {}
+    for where in ("cpu", dev):
+        st = convert.state_to_torch(convert.to_numpy(state), where)
+        if where == dev:
+            zero_counts(ks)
+        runs[str(where)] = cons.deep_scan(
+            st, *convert.deep_to_torch(acc, where),
+            torch.zeros(G, dtype=torch.int32, device=where),
+            convert.submits_to_torch(sub_np, where),
+            torch.from_numpy(deliver).to(where),
+            [(f.to(where), c.to(where)) for f, c in timers], cfg)
+        if where == dev:
+            torch.cuda.synchronize()
+            launched = counts(ks)
+    want, got = runs["cpu"], runs[str(dev)]
+    names = ("state",) + convert.DEEP_ACCUMULATORS + ("events", "telemetry")
+    for name, w, g in zip(names, want, got):
+        if isinstance(w, tuple) and not hasattr(w, "_fields"):
+            w = {str(i): x for i, x in enumerate(w)}
+            g = {str(i): x for i, x in enumerate(g)}
+        w = {name: w} if isinstance(w, torch.Tensor) else w
+        g = {name: g} if isinstance(g, torch.Tensor) else g
+        wl, gl = convert.flat_leaves(w), convert.flat_leaves(g)
+        for leaf, x in wl.items():
+            if x.dtype != gl[leaf].dtype or not np.array_equal(x, gl[leaf]):
+                raise AssertionError(f"deep path: {name}.{leaf} differs")
+    if launched != {"kth_largest": 0, "admit_submits": W, "ack_commit": W}:
+        raise AssertionError(f"deep path: kernel launches {launched} in {W} "
+                             "card rounds")
+    resolved = int(want[2].sum())
+    if resolved == 0:
+        raise AssertionError("deep path: no result was accumulated")
+    say(f"deep path: deep_scan on the card == on the CPU on every state, "
+        f"accumulator, event and telemetry leaf (G={G} P={P} L={L} S={S}, "
+        f"{windows} windows + 3 settle rounds, {int(take.sum())} ops sent, "
+        f"{resolved} resolved, 5% message loss); card rounds launched "
+        f"{launched}")
+    return {"launches": launched}
+
+
+def phase_host_bench(bench, ap, card: str) -> dict:
+    """The north-star host cell in four modes, exactly once each, one
+    launch of each fused kernel a round; then a telemetry drive and a
+    profiler window of one deep drive."""
+    out = {}
+    one_each = {"kth_largest": 0.0, "admit_submits": 1.0, "ack_commit": 1.0}
+    for mode in bench.HOST_MODES:
+        zero_counts(bench.KERNELS)
+        t0 = time.perf_counter()
+        r = bench.run_host(mode)
+        launched = counts(bench.KERNELS)
+        if r["groups_not_exactly_once"]:
+            raise AssertionError(f"host {mode}: {r['groups_not_exactly_once']}"
+                                 " groups' counters differ from the ops "
+                                 "committed to them")
+        if r["launches_per_round"] != one_each:
+            raise AssertionError(f"host {mode}: kernel launches per round "
+                                 f"{r['launches_per_round']}")
+        lat = (f"p50 {r['p50_latency_ms']:.3f} ms, p99 "
+               f"{r['p99_latency_ms']:.3f} ms" if "p50_latency_ms" in r
+               else f"p50 {r['p50_commit_latency_rounds']} rounds, p99 "
+               f"{r['p99_commit_latency_rounds']} rounds")
+        say(f"host {mode}: {r['value']:.1f} committed ops/s host-observed "
+            f"(reps {r['reps_min']:.1f}..{r['reps_max']:.1f}), {lat}, "
+            f"{r['rounds_per_drive']} rounds per drive of "
+            f"{r['ops_per_drive']} ops, every group's counter exactly once, "
+            f"at G={r['shape']['groups']} P={r['shape']['peers']} "
+            f"L={r['shape']['log_slots']} S={r['shape']['submit_slots']}, on "
+            f"{card}; launches per round {r['launches_per_round']}, "
+            f"{launched} in all ({time.perf_counter() - t0:.1f}s with "
+            f"elections)")
+        say(f"host {mode}: " + json.dumps(r))
+        out[mode] = dict(r, launches=launched)
+
+    r = bench.run_host("deep", repeats=1, telemetry=True)
+    tel = r["device_telemetry"]
+    violations = sum(v for k, v in tel.items()
+                     if k.startswith("device.invariant_violations"))
+    committed = 2 * r["ops_per_drive"]      # the warm-up and one drive
+    if tel["device.commit_advance"] < committed or violations:
+        raise AssertionError(f"host deep telemetry: commit_advance "
+                             f"{tel['device.commit_advance']} for "
+                             f"{committed} ops, {violations} violations")
+    say(f"host deep (telemetry on): {r['value']:.1f} ops/s; device.* "
+        f"commit_advance {tel['device.commit_advance']} covers the "
+        f"{committed} ops committed, elections "
+        f"{tel['device.elections_started']}, submit rejections "
+        f"{tel['device.submit_rejections']}, 0 invariant violations, on "
+        f"{card}")
+    out["telemetry"] = r
+
+    # a profiler window of one deep drive at the cell's width
+    G, S = bench.GROUPS, bench.SUBMIT_SLOTS
+    rg = bench._host_engine(G, bench.PEERS, S, True, False, None)
+    driver = bench.BulkDriver(rg)
+    ops = np.repeat(np.arange(G), S * 8)
+    driver.drive(ops, ap.OP_LONG_ADD, 1)
+    out["profile"] = profiled(
+        lambda: driver.drive(ops, ap.OP_LONG_ADD, 1), lambda res: res.rounds,
+        f"one deep drive of {ops.size} ops, G={G} P={bench.PEERS} "
+        f"L={bench.HOST_LOG_SLOTS} S={S}", card)
+    return out
+
+
+def phase_host_read_session(bench, card: str) -> dict:
+    out = {}
+    for level in bench.READ_LEVELS:
+        r = bench.run_host_read(level)
+        if r["wrong_reads"]:
+            raise AssertionError(f"host_read {level}: {r['wrong_reads']} "
+                                 "reads did not return 7")
+        say(f"host_read {level}: {r['value']:.1f} reads/s host-observed "
+            f"(reps {r['reps_min']:.1f}..{r['reps_max']:.1f}), "
+            f"{r['reads_per_repetition']} reads a repetition, every read 7, "
+            f"{r['settle_rounds_per_repetition']} settle rounds a "
+            f"repetition, on {card}")
+        say(f"host_read {level}: " + json.dumps(r))
+        out[level] = r
+    zero_counts(bench.KERNELS)
+    r = bench.run_session()
+    if r["group0_counter"] != r["group0_expected"]:
+        raise AssertionError(f"session: group 0 holds {r['group0_counter']},"
+                             f" want {r['group0_expected']}")
+    say(f"session: {r['value']:.1f} committed session ops/s "
+        f"(reps {r['reps_min']:.1f}..{r['reps_max']:.1f}), {r['sessions']} "
+        f"sessions, {r['rounds_per_flush']} rounds a flush, group 0 exactly "
+        f"once ({r['group0_counter']}), on {card}; launches per round "
+        f"{r['launches_per_round']}")
+    say("session: " + json.dumps(r))
+    out["session"] = r
+    return out
 
 
 def main() -> int:
@@ -1147,6 +1346,9 @@ def main() -> int:
     phase_profile(bench, dev, card, scenario="map")
     phase_query_lane(bench, card, QUERY_ROUNDS, QUERY_REPEATS)
     phase_elections(bench, card, ELECTION_ROUNDS, ELECTION_REPEATS)
+    deep = phase_deep_path(cons, convert, ks, dev)
+    host = phase_host_bench(bench, ap, card)
+    phase_host_read_session(bench, card)
     say(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f}s")
     sources = {"kth_largest": "kth_largest.cu",
@@ -1161,6 +1363,10 @@ def main() -> int:
         "launches_pool_serve": launches["pool_serve"][name],
         "launches_mixed_bench": launches["mixed_bench"][name],
         "launches_per_mixed_round": mixed["launches_per_round"][name],
+        "launches_deep_path": deep["launches"][name],
+        "launches_host_deep": host["deep"]["launches"][name],
+        "launches_per_host_deep_round":
+            host["deep"]["launches_per_round"][name],
         "max_abs_err": errs[name],
         **timing[name],
         "mixed_shape": mixed_timing.get(name),
@@ -1174,6 +1380,7 @@ def main() -> int:
         "replaces": "copycat_tpu/ops/pallas_kernels.py:69",
         "launches": launches["membership_serve"][name],
         "launches_membership_path": membership["launches"][name],
+        "launches_host_deep": 0,     # the host cells run static membership
         "max_abs_err": errs[f"{name}_masked"],
         **masked_timing[name],
     } for name in ("admit_submits", "ack_commit")]

@@ -22,7 +22,27 @@ scenarios, at the same shapes and in the same units:
   and 16 gets through ``query_step`` (no log append) at ``--read-level
   sequential`` (leader-served) or ``atomic`` (lease-gated); reports ops/s
   (committed puts plus served gets) and checks every served get against
-  the value the puts wrote.
+  the value the puts wrote;
+- ``host`` — client-visible throughput through the host runtime
+  (the reference's ``run_host``): G=10,000 × P=3, L=64, S=16, counters
+  only, ``--burst`` ops per group a drive (default S × 8 = 128; S × 1 for
+  ``queued``), every op ``OP_LONG_ADD(1)``. ``--mode deep`` (default) and
+  ``deepscan`` drive a monotone-tag engine through ``BulkDriver`` (per-
+  round dispatch, or the blind phase as one ``deep_scan``), ``bulk`` the
+  classic drive, ``queued`` ``submit_batch`` + ``run_until``. Reports
+  host-observed committed ops/s, p50/p99 submit→result latency in ms,
+  rounds per drive, and checks each group's counter against the ops
+  committed to it (exactly once); ``--telemetry`` turns the device
+  telemetry on and reports its ``device.*`` snapshot;
+- ``host_read`` — client-visible reads (``run_host_read``): one counter
+  write of 7 per group, then ``--burst`` reads per group a repetition
+  through ``BulkDriver.drive_queries`` at ``--read-level``; every read
+  must return 7;
+- ``session`` — the sessioned client (``run_session``): ``--sessions``
+  sessions (default 16) of one ``BulkSessionClient`` on a monotone engine,
+  each owning an equal slice of the groups, ``--burst`` ops per group in
+  one flush; reports committed session ops/s and checks group 0's
+  counter (exactly once).
 
 Defaults are the reference's: G=10,000 groups × P=3 peers, S=E=A=16
 submit slots / append window / applies per round, L=32 log slots for
@@ -41,9 +61,11 @@ quorum kernel (0 on the CPU, where the plain versions run); and
 resource leaves differ after the run (must be 0).
 
     python -m copycat_tpu_torch.bench
-        [--scenario counter|map|lock|mixed|election|map_read]
+        [--scenario counter|map|lock|mixed|election|map_read|host|
+                    host_read|session]
         [--read-level sequential|atomic] [--groups N --peers P
-        --rounds R --repeats K]
+        --rounds R --repeats K] [--mode deep|deepscan|bulk|queued]
+        [--burst OPS_PER_GROUP] [--telemetry] [--sessions N]
 
 runs on the CUDA card and prints one JSON line naming the card and its
 power limit; without a card it raises. ``run_throughput(device="cpu")``
@@ -62,6 +84,7 @@ import numpy as np
 import torch
 
 from .device import card_info, resolve_device
+from .models import BulkDriver, BulkSessionClient, RaftGroups
 from .ops import apply as ap
 from .ops import kernels
 from .ops.consensus import (
@@ -203,7 +226,12 @@ SUBMIT_PATTERNS = {
     "lock": lock_submits,
     "mixed": mixed_submits,
 }
-SCENARIOS = tuple(SUBMIT_PATTERNS) + ("election", "map_read")
+SCENARIOS = tuple(SUBMIT_PATTERNS) + ("election", "map_read", "host",
+                                      "host_read", "session")
+HOST_MODES = ("deep", "deepscan", "bulk", "queued")
+HOST_LOG_SLOTS = 64
+SESSIONS = 16
+HOST_VALUE = 7               # what host_read's one write per group sets
 
 
 # ---------------------------------------------------------------------------
@@ -561,11 +589,239 @@ def run_throughput(scenario: str = "counter", groups: int = GROUPS,
     }
 
 
+# ---------------------------------------------------------------------------
+# the host runtime: client-visible throughput
+# ---------------------------------------------------------------------------
+
+def host_config(submit_slots: int, monotone: bool,
+                telemetry: bool = False) -> Config:
+    """The reference's host cells: counters only, append window and
+    applies per round max(4, S), no pool budgets."""
+    return Config(append_window=max(4, submit_slots),
+                  applies_per_round=max(4, submit_slots),
+                  resource=RESOURCE_CONFIGS["counter"],
+                  monotone_tag_accept=monotone, telemetry=telemetry)
+
+
+def _host_engine(groups, peers, submit_slots, monotone, telemetry, device
+                 ) -> RaftGroups:
+    rg = RaftGroups(groups, peers, log_slots=HOST_LOG_SLOTS,
+                    submit_slots=submit_slots, seed=SEED,
+                    config=host_config(submit_slots, monotone, telemetry),
+                    device=resolve_device(device))
+    t0 = time.perf_counter()
+    rg.wait_for_leaders()
+    log(f"bench: G={groups} P={peers} L={HOST_LOG_SLOTS} S={submit_slots} "
+        f"device={rg.device}: all leaders elected in {rg.rounds} rounds "
+        f"({time.perf_counter() - t0:.1f}s)")
+    return rg
+
+
+def _lead_values(rg: RaftGroups) -> np.ndarray:
+    """Each group's counter on its most-applied lane."""
+    st = rg.state
+    top = st.applied_index.argmax(dim=1)
+    g = torch.arange(rg.num_groups, device=top.device)
+    return st.resources.value[g, top].cpu().numpy()
+
+
+def _host_reps(name: str, burst, repeats: int) -> tuple:
+    """One warm-up ``burst()``, then ``repeats`` timed ones; each returns
+    ``(ops, seconds, rounds, latency percentiles or None)``. Returns the
+    rates, the best repetition's latencies, rounds per repetition and the
+    kernels' launches per round over the timed repetitions."""
+    burst()
+    before = {k: f.launches for k, f in KERNELS.items()}
+    rates, rounds, best_pct = [], [], None
+    for rep in range(repeats):
+        n, dt, r, pct = burst()
+        rates.append(n / dt)
+        rounds.append(r)
+        if pct is not None and n / dt >= max(rates):
+            best_pct = pct
+        log(f"bench[{name}]: rep {rep}: {n} in {dt:.3f}s -> "
+            f"{n / dt:,.0f}/s, {r} rounds")
+    total = max(1, sum(rounds))
+    launches = {k: (f.launches - before[k]) / total
+                for k, f in KERNELS.items()}
+    return rates, best_pct, rounds, launches
+
+
+def run_host(mode: str = "deep", groups: int = GROUPS, peers: int = PEERS,
+             submit_slots: int = SUBMIT_SLOTS, burst: int | None = None,
+             repeats: int = REPEATS, telemetry: bool = False,
+             device: torch.device | str | None = None) -> dict:
+    """The reference's ``host`` scenario: ``burst`` ops per group a drive
+    (default S × 8; S × 1 for ``queued``), every op ``OP_LONG_ADD(1)``,
+    one warm-up drive and ``repeats`` timed ones."""
+    if mode not in HOST_MODES:
+        raise ValueError(f"mode {mode!r} is not one of {HOST_MODES}")
+    S = submit_slots
+    per_group = burst or S * (8 if mode != "queued" else 1)
+    rg = _host_engine(groups, peers, S, mode in ("deep", "deepscan"),
+                      telemetry, device)
+    ops = np.repeat(np.arange(groups), per_group)
+    driver = BulkDriver(rg, deep_scan=mode == "deepscan")
+
+    def one_burst():
+        if mode != "queued":
+            res = driver.drive(ops, ap.OP_LONG_ADD, 1)
+            return (ops.size, res.wall_s, res.rounds,
+                    res.latency_percentiles_ms())
+        t0, r0 = time.perf_counter(), rg.rounds
+        tags = rg.submit_batch(ops, ap.OP_LONG_ADD, 1).tolist()
+        rg.run_until(tags, max_rounds=120)
+        return len(tags), time.perf_counter() - t0, rg.rounds - r0, None
+
+    rates, pct, rounds, launches = _host_reps(f"host:{mode}", one_burst,
+                                              repeats)
+    want = per_group * (repeats + 1)
+    mismatch = int((_lead_values(rg) != want).sum())
+    out = {
+        "metric": (f"host_observed_committed_ops_per_sec_{groups}_groups"
+                   + {"deep": "", "deepscan": "_scan", "bulk": "_sync",
+                      "queued": "_queued"}[mode]),
+        "value": max(rates),
+        "unit": "ops/sec",
+        "scenario": "host",
+        "mode": mode,
+        "ops_per_drive": int(ops.size),
+        "rounds_per_drive": float(np.mean(rounds)),
+        "launches_per_round": launches,
+        "groups_not_exactly_once": mismatch,
+        **spread(rates),
+        "shape": {"groups": groups, "peers": peers,
+                  "log_slots": HOST_LOG_SLOTS, "submit_slots": S,
+                  "ops_per_group": per_group, "repeats": repeats},
+        "device": card_info() if rg.device.type == "cuda" else "cpu",
+    }
+    if pct is not None:
+        out["p50_latency_ms"], out["p99_latency_ms"] = pct["p50"], pct["p99"]
+    else:
+        lat = rg.metrics.histogram("commit_latency_rounds")
+        out["p50_commit_latency_rounds"] = lat.percentile(50)
+        out["p99_commit_latency_rounds"] = lat.percentile(99)
+    if rg.telemetry is not None:
+        out["telemetry"] = True
+        out["device_telemetry"] = rg.device_snapshot()
+    return out
+
+
+def run_host_read(read_level: str = "sequential", groups: int = GROUPS,
+                  peers: int = PEERS, submit_slots: int = SUBMIT_SLOTS,
+                  burst: int | None = None, repeats: int = REPEATS,
+                  device: torch.device | str | None = None) -> dict:
+    """The reference's ``host_read`` scenario: one write of 7 per group
+    through the deep drive, then ``burst`` reads per group (default S ×
+    8) a repetition through ``drive_queries``; every read must return
+    7."""
+    if read_level not in READ_LEVELS:
+        raise ValueError(f"read level {read_level!r} is not one of "
+                         f"{READ_LEVELS}")
+    S = submit_slots
+    per_group = burst or S * 8
+    rg = _host_engine(groups, peers, S, True, False, device)
+    driver = BulkDriver(rg)
+    driver.drive(np.arange(groups), ap.OP_LONG_ADD, HOST_VALUE)
+    reads = np.repeat(np.arange(groups), per_group)
+    driver.drive_queries(reads[:groups], ap.OP_VALUE_GET,
+                         consistency=read_level)
+    wrong = 0
+
+    def one_burst():
+        nonlocal wrong
+        r0, t0 = rg.rounds, time.perf_counter()
+        got = driver.drive_queries(reads, ap.OP_VALUE_GET,
+                                   consistency=read_level)
+        dt = time.perf_counter() - t0
+        wrong += int((got != HOST_VALUE).sum())
+        return reads.size, dt, rg.rounds - r0, None
+
+    rates, _, rounds, _ = _host_reps(f"host_read:{read_level}", one_burst,
+                                     repeats)
+    return {
+        "metric": (f"host_observed_{read_level}_reads_per_sec_"
+                   f"{groups}_groups"),
+        "value": max(rates),
+        "unit": "ops/sec",
+        "scenario": "host_read",
+        "read_level": read_level,
+        "reads_per_repetition": int(reads.size),
+        "settle_rounds_per_repetition": float(np.mean(rounds)),
+        "wrong_reads": wrong,
+        **spread(rates),
+        "shape": {"groups": groups, "peers": peers,
+                  "log_slots": HOST_LOG_SLOTS, "submit_slots": S,
+                  "reads_per_group": per_group, "repeats": repeats},
+        "device": card_info() if rg.device.type == "cuda" else "cpu",
+    }
+
+
+def run_session(n_sessions: int = SESSIONS, groups: int = GROUPS,
+                peers: int = PEERS, submit_slots: int = SUBMIT_SLOTS,
+                burst: int | None = None, repeats: int = REPEATS,
+                telemetry: bool = False,
+                device: torch.device | str | None = None) -> dict:
+    """The reference's ``session`` scenario: ``n_sessions`` sessions of
+    one ``BulkSessionClient`` on a monotone engine, each owning an equal
+    slice of the groups, ``burst`` ops per group (default S × 8) in one
+    flush a repetition; then group 0's counter must equal the ops
+    committed to it."""
+    S = submit_slots
+    per_group = burst or S * 8
+    rg = _host_engine(groups, peers, S, True, telemetry, device)
+    client = BulkSessionClient(rg)
+    sessions = [client.open_session() for _ in range(n_sessions)]
+    slices = np.array_split(np.arange(groups), n_sessions)
+
+    def one_burst():
+        t0, r0 = time.perf_counter(), rg.rounds
+        total = 0
+        for s, sl in zip(sessions, slices):
+            total += s.submit_batch(np.repeat(sl, per_group),
+                                    ap.OP_LONG_ADD, 1).size
+        n = client.flush()
+        if n != total:
+            raise AssertionError(f"session: flush committed {n} of {total}")
+        return total, time.perf_counter() - t0, rg.rounds - r0, None
+
+    rates, _, rounds, launches = _host_reps("session", one_burst, repeats)
+    s0 = sessions[0]
+    q = s0.submit(0, ap.OP_VALUE_GET)
+    client.flush()
+    return {
+        "metric": f"session_committed_ops_per_sec_{groups}_groups",
+        "value": max(rates),
+        "unit": "ops/sec",
+        "scenario": "session",
+        "sessions": n_sessions,
+        "rounds_per_flush": float(np.mean(rounds)),
+        "launches_per_round": launches,
+        "group0_counter": s0.result(q),
+        "group0_expected": per_group * (repeats + 1),
+        **spread(rates),
+        "shape": {"groups": groups, "peers": peers,
+                  "log_slots": HOST_LOG_SLOTS, "submit_slots": S,
+                  "ops_per_group": per_group, "repeats": repeats},
+        "device": card_info() if rg.device.type == "cuda" else "cpu",
+    }
+
+
 def main(argv: list[str] | None = None) -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--scenario", choices=SCENARIOS, default="counter")
     p.add_argument("--read-level", choices=READ_LEVELS, default="sequential",
-                   help="map_read: how the gets are served")
+                   help="map_read, host_read: how the reads are served")
+    p.add_argument("--mode", choices=HOST_MODES, default="deep",
+                   help="host: the drive")
+    p.add_argument("--burst", type=int,
+                   help="host, host_read, session: ops per group a drive "
+                        f"(default {SUBMIT_SLOTS * 8}; {SUBMIT_SLOTS} for "
+                        "--mode queued)")
+    p.add_argument("--telemetry", action="store_true",
+                   help="host, session: device telemetry on")
+    p.add_argument("--sessions", type=int, default=SESSIONS,
+                   help="session: sessions of the one client")
     p.add_argument("--groups", type=int,
                    help=f"default {GROUPS} ({ELECTION_GROUPS} for election)")
     p.add_argument("--peers", type=int, default=PEERS)
@@ -578,6 +834,16 @@ def main(argv: list[str] | None = None) -> None:
     elif args.scenario == "map_read":
         result = run_map_read(args.read_level, groups=args.groups or GROUPS,
                               **kw)
+    elif args.scenario in ("host", "host_read", "session"):
+        kw = dict(groups=args.groups or GROUPS, peers=args.peers,
+                  burst=args.burst, repeats=args.repeats)
+        if args.scenario == "host":
+            result = run_host(args.mode, telemetry=args.telemetry, **kw)
+        elif args.scenario == "host_read":
+            result = run_host_read(args.read_level, **kw)
+        else:
+            result = run_session(args.sessions, telemetry=args.telemetry,
+                                 **kw)
     else:
         result = run_throughput(args.scenario, groups=args.groups or GROUPS,
                                 **kw)

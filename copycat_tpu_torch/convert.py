@@ -7,8 +7,12 @@ package's types from them on a chosen device, and :func:`to_numpy` turns
 any of this package's NamedTuples into nested dicts of numpy arrays by
 field name. The field names and dtypes are the reference's, so the two
 engines can start from one state and be compared leaf by leaf — the
-voter bitmask ``member`` (set from ``voters`` / ``members`` at init) and
-the ``refused`` output of dynamic membership included.
+voter bitmask ``member`` (set from ``voters`` / ``members`` at init), the
+``refused`` output of dynamic membership and the ``telemetry`` block
+(:class:`DeviceTelemetry`) included. The deep drive's accumulators
+(``resbuf``, ``valbuf``, ``rndbuf``, ``evflag``) cross with
+:func:`deep_to_torch` and, as a dict by those names, compare with
+:func:`flat_leaves`.
 """
 
 from __future__ import annotations
@@ -19,7 +23,15 @@ import numpy as np
 import torch
 
 from .ops.apply import ResourceConfig, ResourceState
-from .ops.consensus import Config, RaftState, StepOutputs, Submits
+from .ops.consensus import (
+    Config,
+    DeviceTelemetry,
+    RaftState,
+    StepOutputs,
+    Submits,
+)
+
+DEEP_ACCUMULATORS = ("resbuf", "valbuf", "rndbuf", "evflag")
 
 
 def _fields(x: Any) -> dict:
@@ -48,7 +60,8 @@ def _build(cls, x: Any, device, nested: dict | None = None):
         if name not in f:
             continue
         sub = nested.get(name)
-        out[name] = (_build(sub, f[name], device) if sub is not None
+        out[name] = (_build(sub, f[name], device)
+                     if sub is not None and f[name] is not None
                      else _leaf(f[name], device))
     return cls(**out)
 
@@ -67,11 +80,19 @@ def submits_to_torch(submits: Any, device: torch.device | str) -> Submits:
 
 
 def outputs_to_torch(outputs: Any, device: torch.device | str) -> StepOutputs:
-    f = dict(_fields(outputs))
-    if f.get("telemetry") is not None:
-        raise NotImplementedError("step telemetry is not ported yet")
-    f["telemetry"] = None
-    return _build(StepOutputs, f, device)
+    return _build(StepOutputs, outputs, device,
+                  {"telemetry": DeviceTelemetry})
+
+
+def deep_to_torch(acc: Any, device: torch.device | str) -> tuple:
+    """The deep accumulators ``(resbuf, valbuf, rndbuf, evflag)`` from a
+    sequence in that order or a dict by those names."""
+    if isinstance(acc, dict):
+        acc = [acc[name] for name in DEEP_ACCUMULATORS]
+    if len(acc) != len(DEEP_ACCUMULATORS):
+        raise ValueError(f"expected {DEEP_ACCUMULATORS}, got {len(acc)} "
+                         "arrays")
+    return tuple(_leaf(x, device) for x in acc)
 
 
 def config_to_torch(config: Any) -> Config:

@@ -12,15 +12,20 @@ install for stale followers, and explicit ``submits``/``deliver``),
 ``wait_for_leaders``; the query lane (``submit_query``, ``serve_query``,
 ``drive_query_vector``); the one-shot vector pump ``drive_vector``;
 membership changes (``voters=``, ``add_peer``, ``remove_peer``,
-``voting_members``) under ``Config(dynamic_membership=True)``; and device
-sessions (``sessions``, ``models/sessions.py``). Telemetry, meshes and
-the metrics registry are not ported yet (a plain ``counters`` Counter
-stands in for the registry).
+``voting_members``) under ``Config(dynamic_membership=True)``; device
+sessions (``sessions``, ``models/sessions.py``); the metrics registry
+(``metrics``); the device telemetry hub (``telemetry``,
+``device_snapshot``) under ``Config(telemetry=True)`` or
+``COPYCAT_TELEMETRY``; monotone-tag engines, which refuse queue-managed
+submits and feed the deep bulk plane (``models/bulk.py``) through the
+single-host hooks ``_global_max_int``, ``_stage_acc``, ``_fetch_acc``
+and ``_deep_fn``. Meshes and the multi-host hooks are not ported.
 """
 
 from __future__ import annotations
 
-from collections import Counter, deque
+from collections import deque
+from functools import partial
 
 import numpy as np
 import torch
@@ -33,7 +38,7 @@ from ..ops.consensus import (
     RaftState,
     StepOutputs,
     Submits,
-    check_config,
+    deep_step,
     draw_timers,
     full_delivery,
     init_state,
@@ -41,31 +46,65 @@ from ..ops.consensus import (
     query_step,
     step,
 )
+from ..utils.metrics import MetricsRegistry
+from .telemetry import DeviceTelemetryHub, telemetry_env_enabled
 
 
-def fetch(raw) -> StepOutputs:
-    """Step outputs (``[...]`` tensors, or a list of rounds' outputs
-    stacked to ``[n, ...]``) to numpy with ONE device-to-host copy: every
-    leaf (int32 or bool) goes into one int32 buffer on the device, which
-    is copied once and split back into leaves of their own dtypes."""
-    if isinstance(raw, list):
-        names = [i for i, x in enumerate(raw[0]) if x is not None]
-        leaves = [torch.stack([r[i] for r in raw]) for i in names]
-    else:
-        names = [i for i, x in enumerate(raw) if x is not None]
-        leaves = [raw[i] for i in names]
+def _leaves(tree, kind=torch.Tensor) -> list:
+    """The ``kind`` leaves of nested tuples, lists and NamedTuples, in
+    order (``None`` leaves skipped)."""
+    if isinstance(tree, kind):
+        return [tree]
+    if isinstance(tree, (tuple, list)):
+        return [t for x in tree for t in _leaves(x, kind)]
+    if tree is None:
+        return []
+    raise TypeError(f"cannot fetch a {type(tree).__name__}")
+
+
+def _rebuild(tree, leaves, kind=torch.Tensor):
+    """``tree`` with its ``kind`` leaves replaced, in order, by the items
+    of the iterator ``leaves``."""
+    if isinstance(tree, kind):
+        return next(leaves)
+    if isinstance(tree, list):
+        return [_rebuild(x, leaves, kind) for x in tree]
+    if isinstance(tree, tuple):
+        vals = [_rebuild(x, leaves, kind) for x in tree]
+        return type(tree)(*vals) if hasattr(tree, "_fields") else tuple(vals)
+    return None
+
+
+def fetch(tree):
+    """A tree of int32 and bool tensors (nested tuples, lists,
+    NamedTuples) as the same tree of numpy arrays, with ONE device-to-host
+    copy: every leaf goes into one int32 buffer on its device, which is
+    copied (and so synchronised) once and split back into leaves of their
+    own dtypes. A list of step outputs fetches as one ``StepOutputs`` of
+    ``[n, ...]`` leaves."""
+    if isinstance(tree, list) and tree and isinstance(tree[0], StepOutputs):
+        tree = _rebuild(tree[0], iter(
+            [torch.stack(x) for x in zip(*map(_leaves, tree))]))
+    leaves = _leaves(tree)
     for x in leaves:
         if x.dtype not in (torch.int32, torch.bool):
-            raise TypeError(f"step output of dtype {x.dtype}")
-    flat = torch.cat([x.reshape(-1).to(torch.int32) for x in leaves]).cpu()
-    out: list = [None] * len(StepOutputs._fields)
-    at = 0
-    for i, x in zip(names, leaves):
-        n = x.numel()
-        v = flat[at:at + n].reshape(x.shape).numpy()
-        out[i] = v.astype(bool) if x.dtype == torch.bool else v
-        at += n
-    return StepOutputs(*out)
+            raise TypeError(f"cannot fetch a tensor of dtype {x.dtype}")
+    out = []
+    if leaves:
+        flat = torch.cat([x.reshape(-1).to(torch.int32)
+                          for x in leaves]).cpu()
+        at = 0
+        for x in leaves:
+            v = flat[at:at + x.numel()].reshape(x.shape).numpy()
+            out.append(v.astype(bool) if x.dtype == torch.bool else v)
+            at += x.numel()
+    return _rebuild(tree, iter(out))
+
+
+def _round_of(outs: StepOutputs, i: int) -> StepOutputs:
+    """Round ``i`` of outputs fetched stacked ``[n, ...]``."""
+    return _rebuild(outs, iter([x[i] for x in _leaves(outs, np.ndarray)]),
+                    np.ndarray)
 
 
 def _group_slot_pack(g: np.ndarray
@@ -95,7 +134,9 @@ class RaftGroups:
     pool; lock grants, election hand-offs and topic messages arrive in
     ``events``. ``voters`` (with ``Config(dynamic_membership=True)``)
     starts each group with lanes ``0..voters-1`` voting and the rest as
-    standbys.
+    standbys. ``COPYCAT_TELEMETRY=1`` or a ``COPYCAT_INVARIANTS`` mode
+    turns ``Config.telemetry`` on (it never changes the state's
+    evolution).
     """
 
     MAX_EVENTS_PER_GROUP = 4096
@@ -116,7 +157,8 @@ class RaftGroups:
         self.log_slots = log_slots
         self.submit_slots = submit_slots
         self.config = config or Config()
-        check_config(self.config)
+        if not self.config.telemetry and telemetry_env_enabled():
+            self.config = self.config._replace(telemetry=True)
         members = None
         if voters is not None:
             if not 0 < voters <= num_peers:
@@ -142,6 +184,7 @@ class RaftGroups:
         self._next_tag = 1
         # tag -> (opcode, a, b, c) of every op not yet answered
         self._inflight_ops: dict[int, tuple[int, int, int, int]] = {}
+        self._submit_round: dict[int, int] = {}  # tag -> round submitted
         # exactly-once retry: an op accepted into a leader log can still be
         # LOST — a partitioned leader's unreplicated tail is overwritten by
         # its successor. The host re-submits only on PROOF of loss: once an
@@ -158,7 +201,16 @@ class RaftGroups:
         self._pend_min: dict[int, int] = {}
         self.results: dict[int, int] = {}    # tag -> result
         self.rounds = 0
-        self.counters: Counter = Counter()   # ops_submitted/_committed/...
+        self.metrics = MetricsRegistry()     # ops/sec, latency, ...
+        # device-plane flight recorder: folds the step's telemetry deltas
+        # into the device.* metrics, the flight ring and the invariant
+        # monitor
+        self.telemetry = (DeviceTelemetryHub(num_groups)
+                          if self.config.telemetry else None)
+        # monotone-tag engines: per-group count of stream ops committed so
+        # far; the next deep drive's dense tags continue from here
+        if self.config.monotone_tag_accept:
+            self._stream_count = np.zeros(num_groups, np.int64)
         self.clock = 0                       # mirrors the device logical clock
         self.events: dict[int, list[tuple[int, int, int, int]]] = {}
         self._ev_seen: dict[int, int] = {}   # group -> highest seq consumed
@@ -201,15 +253,28 @@ class RaftGroups:
             raise ValueError(f"peer {int(np.asarray(a)[bad].flat[0])} "
                              f"outside 0..{self.num_peers - 1}")
 
+    def _refuse_monotone(self) -> None:
+        """Monotone-tag engines accept only the bulk plane's dense tag
+        streams: a queue-managed submit (whose retries re-send old tags)
+        would be rejected by the device gate forever, so refuse it up
+        front. Queries never append and stay allowed."""
+        if self.config.monotone_tag_accept:
+            raise NotImplementedError(
+                "queue-managed submits are incompatible with "
+                "Config(monotone_tag_accept=True) engines; drive them "
+                "through models.bulk.BulkDriver")
+
     def submit(self, group: int, opcode: int, a: int = 0, b: int = 0,
                c: int = 0) -> int:
         """Queue one op; returns a correlation tag resolved in ``results``."""
         self._check_config_ops(np.asarray(opcode), np.asarray(a))
+        self._refuse_monotone()
         tag = self._next_tag
         self._next_tag += 1
         self._queues.setdefault(group, deque()).append((opcode, a, b, c, tag))
         self._inflight_ops[tag] = (opcode, a, b, c)
-        self.counters["ops_submitted"] += 1
+        self._submit_round[tag] = self.rounds
+        self.metrics.counter("ops_submitted").inc()
         return tag
 
     def submit_batch(self, groups, opcode, a=0, b=0, c=0) -> np.ndarray:
@@ -224,6 +289,7 @@ class RaftGroups:
             np.asarray(x, np.int64).ravel(), (n,))
         op_a, a_a, b_a, c_a = bc(opcode), bc(a), bc(b), bc(c)
         self._check_config_ops(op_a, a_a)
+        self._refuse_monotone()
         tags = np.arange(self._next_tag, self._next_tag + n)
         if n == 0:
             return tags
@@ -233,6 +299,7 @@ class RaftGroups:
         op_l, a_l, b_l, c_l = (op_a.tolist(), a_a.tolist(),
                                b_a.tolist(), c_a.tolist())
         self._inflight_ops.update(zip(tag_l, zip(op_l, a_l, b_l, c_l)))
+        self._submit_round.update(dict.fromkeys(tag_l, self.rounds))
         if not self._stage_direct(groups_a, op_a, a_a, b_a, c_a, tags):
             order = np.argsort(groups_a, kind="stable")
             bounds = np.flatnonzero(np.diff(groups_a[order])) + 1
@@ -241,7 +308,7 @@ class RaftGroups:
                 q = self._queues.setdefault(g_l[seg_l[0]], deque())
                 q.extend((op_l[i], a_l[i], b_l[i], c_l[i], tag_l[i])
                          for i in seg_l)
-        self.counters["ops_submitted"] += n
+        self.metrics.counter("ops_submitted").inc(n)
         return tags
 
     def _drop_placement(self, g: int, idx: int) -> None:
@@ -314,9 +381,10 @@ class RaftGroups:
         """Scatter rows straight into the next round's submit buffer.
         Refused (``False`` — the caller takes the queue path) whenever
         ordering could be observable: queued ops exist, holds are active,
-        a buffer is already staged, or a group would overflow its submit
-        window."""
-        if self._queues or self._held or self._staged_sub is not None:
+        a buffer is already staged, the engine is monotone (the deep plane
+        owns its streams), or a group would overflow its submit window."""
+        if (self._queues or self._held or self._staged_sub is not None
+                or self.config.monotone_tag_accept):
             return False
         counts = np.bincount(g, minlength=self.num_groups)
         if counts.max(initial=0) > self.submit_slots:
@@ -361,11 +429,12 @@ class RaftGroups:
         fresh, cand = self._draw_timers()
         dl = self.deliver if deliver is None else torch.as_tensor(
             deliver).to(self.device)
-        self.state, raw = step(self.state, self._to_device(submits), dl,
-                               fresh, cand, self.config)
-        out = fetch(raw)
+        with self.metrics.timer("step_wall_ms"):
+            self.state, raw = step(self.state, self._to_device(submits), dl,
+                                   fresh, cand, self.config)
+            out = fetch(raw)        # the copy waits for the device
         self.rounds += 1
-        self.counters["rounds"] += 1
+        self.metrics.counter("rounds").inc()
         if not explicit:
             self._requeue_rejected(submits, out)
         self._harvest(out)
@@ -403,15 +472,17 @@ class RaftGroups:
         sub = self._to_device(submits)
         empty = Submits(*(torch.zeros_like(x) for x in sub))
         raws = []
-        for i, (fresh, cand) in enumerate(draws):
-            self.state, raw = step(self.state, sub if i == 0 else empty,
-                                   self.deliver, fresh, cand, self.config)
-            raws.append(raw)
-        outs = fetch(raws)
+        with self.metrics.timer("step_wall_ms"):
+            for i, (fresh, cand) in enumerate(draws):
+                self.state, raw = step(self.state, sub if i == 0 else empty,
+                                       self.deliver, fresh, cand,
+                                       self.config)
+                raws.append(raw)
+            outs = fetch(raws)
         for i in range(n):
-            out_i = StepOutputs(*(None if x is None else x[i] for x in outs))
+            out_i = _round_of(outs, i)
             self.rounds += 1
-            self.counters["rounds"] += 1
+            self.metrics.counter("rounds").inc()
             if i == 0:
                 self._requeue_rejected(submits, out_i)
             self._harvest(out_i)
@@ -456,7 +527,7 @@ class RaftGroups:
         if consistency == "atomic":
             self._query_atomic.add(tag)
         self._inflight_queries.add(tag)
-        self.counters["queries_submitted"] += 1
+        self.metrics.counter("queries_submitted").inc()
         return tag
 
     def serve_query(self, group: int, opcode: int, a: int = 0, b: int = 0,
@@ -480,7 +551,7 @@ class RaftGroups:
         for _ in range(max_attempts):
             results, served = self._run_query(sub, atomic)
             if served[group, 0]:
-                self.counters["queries_served"] += 1
+                self.metrics.counter("queries_served").inc()
                 return int(results[group, 0])
             self.step_round()  # no leader yet / applied < commit: settle
         raise TimeoutError(
@@ -497,6 +568,7 @@ class RaftGroups:
             if int(sub.tag[g, s]) in self._query_atomic:
                 atomic[g, s] = True
         results, served = self._run_query(sub, atomic)
+        escalated = self.metrics.counter("queries_escalated")
         for g, s in placed:
             tag = int(sub.tag[g, s])
             self._query_atomic.discard(tag)
@@ -504,16 +576,25 @@ class RaftGroups:
                 if tag in self._inflight_queries:
                     self._inflight_queries.discard(tag)
                     self.results[tag] = int(results[g, s])
-                    self.counters["queries_served"] += 1
-            else:
-                op = (int(sub.opcode[g, s]), int(sub.a[g, s]),
-                      int(sub.b[g, s]), int(sub.c[g, s]))
-                # escalate: a quorum-committed read, at least as strong as
-                # the level asked for; it joins the loss-retry protocol
-                self._inflight_queries.discard(tag)
-                self._queues.setdefault(g, deque()).append((*op, tag))
-                self._inflight_ops[tag] = op
-                self.counters["queries_escalated"] += 1
+                    self.metrics.counter("queries_served").inc()
+                continue
+            op = (int(sub.opcode[g, s]), int(sub.a[g, s]),
+                  int(sub.b[g, s]), int(sub.c[g, s]))
+            escalated.inc()
+            if self.config.monotone_tag_accept:
+                # the command path is closed on monotone engines (the gate
+                # would reject the escalated tag forever): retry on the
+                # query lane, servable once a leader and lease settle
+                self._query_queues.setdefault(g, deque()).append((*op, tag))
+                if atomic[g, s]:
+                    self._query_atomic.add(tag)
+                continue
+            # escalate: a quorum-committed read, at least as strong as the
+            # level asked for; it joins the loss-retry protocol
+            self._inflight_queries.discard(tag)
+            self._queues.setdefault(g, deque()).append((*op, tag))
+            self._inflight_ops[tag] = op
+            self._submit_round[tag] = self.rounds
 
     def drive_query_vector(self, groups, opcode, a=0, b=0, c=0,
                            atomic=False,
@@ -561,10 +642,10 @@ class RaftGroups:
                 rows = order[hit]
                 out[rows] = results[gs[hit], slots[hit]]
                 done[rows] = True
-                self.counters["queries_served"] += int(hit.sum())
+                self.metrics.counter("queries_served").inc(int(hit.sum()))
                 sub.valid[gs[hit], slots[hit]] = False
             if done.all():
-                self.counters["query_vector_drives"] += 1
+                self.metrics.counter("query_vector_drives").inc()
                 return out
             self.step_round()  # no leader yet / applied < commit: settle
         raise TimeoutError(
@@ -595,7 +676,7 @@ class RaftGroups:
         tag0 = tags[0] if n else 0
         res = np.zeros(n, np.int64)
         done = np.zeros(n, bool)
-        self.counters["ops_submitted"] += n
+        self.metrics.counter("ops_submitted").inc(n)
         remaining = n
         for _ in range(max_rounds):
             out = self.step_round()
@@ -622,7 +703,7 @@ class RaftGroups:
                         done[k] = True
                         remaining -= 1
             if remaining == 0:
-                self.counters["ops_committed"] += n
+                self.metrics.counter("ops_committed").inc(n)
                 return res
         raise TimeoutError(
             f"vector drive: {remaining}/{n} rows uncommitted after "
@@ -670,8 +751,9 @@ class RaftGroups:
                 tag = int(submits.tag[g, s])
                 # recorded for untracked tags too (drive_vector's rows)
                 self.results[tag] = FAIL
-                self.counters["ops_refused"] += 1
+                self.metrics.counter("ops_refused").inc()
                 self._inflight_ops.pop(tag, None)
+                self._submit_round.pop(tag, None)
         rejected = valid & ~out.accepted & ~out.refused
         if not rejected.any():
             return
@@ -683,6 +765,8 @@ class RaftGroups:
                  int(submits.tag[g, s])))
 
     def _harvest(self, out: StepOutputs) -> None:
+        if self.telemetry is not None and out.telemetry is not None:
+            self.telemetry.ingest(out.telemetry, self.rounds)
         self.clock = int(out.clock.max(initial=self.clock))
         lt = out.leader_term
         rose = self._placements and bool((lt > self._leader_term).any())
@@ -702,6 +786,8 @@ class RaftGroups:
             term_l = out.out_term[gi, ii].tolist()
             inflight = self._inflight_ops
             results = self.results
+            latency = self.metrics.histogram("commit_latency_rounds")
+            resubmitted = self.metrics.counter("ops_resubmitted")
             n_done = 0
             for k, tag in enumerate(tags_l):
                 g = g_l[k]
@@ -728,7 +814,7 @@ class RaftGroups:
                                 self._queues.setdefault(
                                     g, deque()).appendleft(
                                     (*self._inflight_ops[owner], owner))
-                                self.counters["ops_resubmitted"] += 1
+                                resubmitted.inc()
                         pend = self._placements.get(g)
                         if pend:  # refresh the stale lower bound
                             self._pend_min[g] = min(
@@ -741,7 +827,11 @@ class RaftGroups:
                             self._drop_placement(placed[0], placed[1])
                     results[tag] = res_l[k]
                     n_done += 1
-            self.counters["ops_committed"] += n_done
+                    at = self._submit_round.pop(tag, None)
+                    if at is not None:
+                        latency.record(self.rounds - at)
+            if n_done:
+                self.metrics.counter("ops_committed").inc(n_done)
         self._ingest_events(out)
 
     def _ingest_events(self, out: StepOutputs) -> None:
@@ -835,7 +925,34 @@ class RaftGroups:
             s.member, s.applied_index, s.term, s.role)))
         return [p for p in range(self.num_peers) if (mask >> p) & 1]
 
+    # -- the deep bulk plane's hooks (single host) -------------------------
+
+    def _global_max_int(self, v: int) -> int:
+        """Max of ``v`` across processes: ``v`` on one host."""
+        return v
+
+    def _stage_acc(self, arr: np.ndarray) -> torch.Tensor:
+        """A group-leading host array on the engine's device (a deep
+        drive's accumulator)."""
+        return torch.from_numpy(arr).to(self.device)
+
+    def _fetch_acc(self, arrays):
+        """A tree of group-leading device tensors as numpy, in one copy."""
+        return fetch(arrays)
+
+    def _deep_fn(self):
+        """:func:`~copycat_tpu_torch.ops.consensus.deep_step` at this
+        engine's config (the scatter form)."""
+        return partial(deep_step, config=self.config)
+
     # -- inspection --------------------------------------------------------
+
+    def device_snapshot(self) -> dict:
+        """The ``device.*`` telemetry family as a snapshot dict (empty when
+        telemetry is off)."""
+        if self.telemetry is None:
+            return {}
+        return self.telemetry.snapshot()
 
     def leader(self, group: int) -> int:
         role = self.state.role[group].cpu().numpy()

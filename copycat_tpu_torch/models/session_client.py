@@ -1,0 +1,621 @@
+"""Sessioned batch client over the bulk/deep pipeline.
+
+Counterpart of ``copycat_tpu/models/session_client.py``: a batched
+SESSION client whose commands carry (session, seq), are deduplicated
+exactly-once, and commit through the pipelined bulk drive.
+
+Contract:
+
+- **per-session, per-group FIFO**: a session's commands to one group
+  apply in submission order (the drive schedules each group's ops in
+  batch order; on monotone-tag engines the device gate enforces it).
+  Cross-group order is not defined.
+- **exactly-once**: retransmits inside the drive never double-apply — on
+  monotone engines the device's tag gate rejects every duplicate whose
+  original can still commit; on classic engines only unaccepted ops are
+  re-sent. Results are cached per (session, seq):
+  :meth:`BulkSession.result` correlates any number of times.
+- **session events**: per-group event streams (lock grants, election
+  hand-offs, topic messages) reach session listeners in seq order with
+  per-listener cursors (closeable ``Listeners`` registrations).
+- **liveness**: keep-alives ride every flush — all sessions of one client
+  share the client runtime. A session whose client stops flushing expires
+  through :class:`~copycat_tpu_torch.models.sessions.DeviceSessionRegistry`
+  and its lock and election interests are released through the log; on
+  monotone engines the cleanup ops ride the next flush of any surviving
+  client.
+
+All sessions' pending commands flush as ONE bulk drive (deep mode on
+monotone engines: no device synchronisation per round, one result fetch
+per flush), with per-op bookkeeping held to numpy slicing and one dict
+update per op. The ``session`` bench scenario measures it.
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+from typing import Any, Callable, NamedTuple
+
+import numpy as np
+
+from ..utils import knobs
+from ..utils.listeners import Listener, Listeners
+from .bulk import BulkDriver
+from .sessions import DeviceSession, SessionExpiredError
+
+logger = logging.getLogger(__name__)
+
+
+class CommandIndeterminateError(RuntimeError):
+    """The drive carrying this command was abandoned (fault-envelope
+    violation): the command MAY have applied. The reference surfaces the
+    same indeterminacy when a session dies mid-command (Copycat's
+    command failure on session loss); correlate a fresh read to learn
+    the state."""
+
+
+class SessionEvent(NamedTuple):
+    """One replicated session event, as delivered to listeners."""
+
+    group: int
+    seq: int      # absolute per-group event seq (dedup key)
+    code: int     # ops.apply.EV_* code
+    target: int   # e.g. granted holder id; -1 = broadcast
+    arg: int
+
+
+#: result-cache sentinels (identity-compared in BulkSession.result)
+_INDETERMINATE = object()
+_EXPIRED = object()
+
+
+class _EdgeValueCache:
+    """Edge replica: the post-apply state rows of this client's OWN
+    committed value-pool writes, served back to CAUSAL-level reads without
+    an engine round.
+
+    On the device plane a Raft group IS the resource, and a committed
+    write's post-apply register value is derivable from ``(opcode,
+    operands, result)`` — SET/GET_AND_SET install their operand, CAS
+    installs its update iff the result says it swapped, LONG_ADD
+    returns the new value outright. Read-your-writes and monotone reads
+    hold per client by construction (every committed write of this
+    client passes through :meth:`observe` in batch order); freshness
+    against OTHER processes' writes is exactly what CAUSAL does not
+    promise — SEQUENTIAL and above always drive the engine. An
+    abandoned drive purges the cache: its ops are INDETERMINATE, and
+    serving a pre-abandon row would hide a write that may have applied
+    (the correlate-a-fresh-read recovery contract).
+
+    Only groups the client actually reads through the causal lane are
+    tracked (the interest set), so write-only workloads pay one
+    truthiness check per flush.
+    """
+
+    __slots__ = ("state", "interest", "ttl_groups", "_m_serves",
+                 "_m_fallbacks", "_m_merges", "_m_purges")
+
+    def __init__(self, metrics: Any) -> None:
+        self.state: dict[int, int] = {}
+        self.interest: set[int] = set()
+        # groups that ever armed a device-side TTL (OP_VALUE_SET with a
+        # ttl-ticks operand): the engine will clear them at a deadline
+        # the host cannot observe, so they are permanently uncacheable
+        self.ttl_groups: set[int] = set()
+        self._m_serves = metrics.counter("edge.local_serves")
+        self._m_fallbacks = metrics.counter("edge.server_fallbacks")
+        self._m_merges = metrics.counter("edge.merges")
+        self._m_purges = metrics.counter("edge.purges")
+
+    def observe(self, groups: np.ndarray, opcode: np.ndarray,
+                a: np.ndarray, b: np.ndarray, c: np.ndarray,
+                results: np.ndarray) -> None:
+        """Fold one committed chunk's value-pool writes into the
+        replica (vectorized; called from the flush's correlate pass)."""
+        if not self.interest:
+            return
+        from ..ops import apply as ops
+        watched = np.isin(groups, np.fromiter(self.interest, np.int64))
+        if not watched.any():
+            return
+        is_set = opcode == ops.OP_VALUE_SET
+        # a TTL'd set expires ON DEVICE at a log-time deadline this
+        # cache cannot see (ops/apply.py: the register then reads as
+        # unset) — blacklist the group from caching outright
+        ttl = watched & is_set & (c != 0)
+        if ttl.any():
+            for g in groups[ttl].tolist():
+                self.ttl_groups.add(int(g))
+                self.state.pop(int(g), None)
+        is_gas = opcode == ops.OP_VALUE_GET_AND_SET
+        is_add = opcode == ops.OP_LONG_ADD
+        is_cas = (opcode == ops.OP_VALUE_CAS) & (results == 1)
+        mask = watched & (is_set | is_gas | is_add | is_cas)
+        if self.ttl_groups:
+            mask &= ~np.isin(groups,
+                             np.fromiter(self.ttl_groups, np.int64))
+        if not mask.any():
+            return
+        value = np.where(is_add, results, np.where(is_cas, b, a))
+        for g, v in zip(groups[mask].tolist(), value[mask].tolist()):
+            self.state[int(g)] = int(v)
+        self._m_merges.inc(int(mask.sum()))
+
+    def serve(self, groups: np.ndarray) -> np.ndarray | None:
+        """All-or-nothing local serve of one GET batch; ``None`` falls
+        back to the engine's query lane (and marks interest so future
+        flushes feed these groups)."""
+        state = self.state
+        out = np.empty(groups.size, np.int64)
+        for k, g in enumerate(groups.tolist()):
+            v = state.get(int(g))
+            if v is None:
+                self.interest.update(int(x) for x in groups.tolist())
+                self._m_fallbacks.inc(int(groups.size))
+                return None
+            out[k] = v
+        self._m_serves.inc(int(groups.size))
+        return out
+
+    def refresh_from_reads(self, groups: np.ndarray,
+                           results: np.ndarray) -> None:
+        """Fold an ENGINE-served GET's results back into the replica:
+        the engine's answer is at-least-as-new as anything cached, so
+        this keeps mixed-level read sequences monotone — a session
+        that observed a foreign writer's value through a SEQUENTIAL
+        read must never see an older cached value from a later CAUSAL
+        read."""
+        if not self.interest:
+            return
+        for g, v in zip(groups.tolist(), results.tolist()):
+            g = int(g)
+            if g in self.interest and g not in self.ttl_groups:
+                self.state[g] = int(v)
+
+    def purge(self) -> None:
+        """Drop every cached row (abandoned drive: ops may or may not
+        have applied; the next read must come from the engine)."""
+        if self.state:
+            self.state.clear()
+            self._m_purges.inc()
+
+#: SPI read-consistency vocabulary -> device query lane level. The
+#: device lane has two serving regimes (leader applied state; leader
+#: applied state + lease gate); each SPI level maps to the weakest
+#: regime that satisfies it.
+_READ_LEVELS = {
+    "none": "sequential",
+    "causal": "sequential",
+    "process": "sequential",
+    "sequential": "sequential",
+    "atomic": "atomic",
+    "bounded_linearizable": "atomic",
+    "linearizable": "atomic",
+}
+
+
+class _Chunk(NamedTuple):
+    """One buffered batch of commands (vectorized submission unit)."""
+
+    seq0: int
+    groups: np.ndarray
+    opcode: np.ndarray
+    a: np.ndarray
+    b: np.ndarray
+    c: np.ndarray
+
+
+class BulkSession:
+    """One sessioned client identity over a :class:`BulkSessionClient`.
+
+    ``id`` doubles as the lock-holder / election-candidate id for ops
+    submitted through this session (the reference's "state is keyed by
+    sessions" discipline), so registry expiry can release exactly this
+    session's interests.
+    """
+
+    def __init__(self, client: "BulkSessionClient",
+                 dev: DeviceSession) -> None:
+        self._client = client
+        self._dev = dev
+        self.id = dev.id
+        self._next_seq = 0
+        self._pending: list[_Chunk] = []
+        # seq -> committed result, or the _INDETERMINATE/_EXPIRED
+        # sentinel objects (identity-compared in result())
+        self._results: dict[int, int | object] = {}
+        # group -> (Listeners, last-delivered event seq)
+        self._subs: dict[int, tuple[Listeners, int]] = {}
+
+    # -- command submission (buffered; committed by client.flush()) -------
+
+    def submit(self, group: int, opcode: int, a: int = 0, b: int = 0,
+               c: int = 0) -> int:
+        """Buffer one command; returns its session sequence number.
+
+        The seq is assigned exactly once — a client-level retry is a
+        re-read of :meth:`result`, never a re-submit, so the op can
+        never double-apply through this API.
+        """
+        return int(self.submit_batch([group], opcode, a, b, c)[0])
+
+    def submit_batch(self, groups, opcode, a=0, b=0, c=0) -> np.ndarray:
+        """Vectorized submit: one command per entry of ``groups``
+        (scalars broadcast); returns the assigned seqs. The per-op cost
+        is pure numpy — this is the API the ≥100k ops/s surface uses."""
+        self._check_open()
+        g = np.asarray(groups, np.int64).ravel()
+        n = g.size
+        bc = lambda x: np.broadcast_to(
+            np.asarray(x, np.int32).ravel(), (n,)).copy()
+        chunk = _Chunk(self._next_seq, g, bc(opcode), bc(a), bc(b), bc(c))
+        self._next_seq += n
+        if n:
+            self._pending.append(chunk)
+        return np.arange(chunk.seq0, chunk.seq0 + n)
+
+    def lock_acquire(self, group: int, timeout_ticks: int = -1) -> int:
+        """Convenience: queue a lock acquire keyed by THIS session (and
+        bind the interest so expiry releases it)."""
+        from ..ops import apply as ops
+        self._dev.bind(group, "lock")
+        return self.submit(group, ops.OP_LOCK_ACQUIRE, self.id,
+                           timeout_ticks)
+
+    def elect_listen(self, group: int) -> int:
+        from ..ops import apply as ops
+        self._dev.bind(group, "election")
+        return self.submit(group, ops.OP_ELECT_LISTEN, self.id)
+
+    # -- result correlation (exactly-once read side) ----------------------
+
+    def result(self, seq: int) -> int:
+        """Committed result of command ``seq``. Raises ``KeyError`` while
+        the command is still buffered/in-flight (flush first);
+        :class:`CommandIndeterminateError` if the drive carrying it was
+        abandoned; :class:`SessionExpiredError` if the session died
+        before the command committed."""
+        val = self._results[seq]
+        if val is _INDETERMINATE:
+            raise CommandIndeterminateError(
+                f"session {self.id} seq {seq}: drive abandoned; the "
+                "command may or may not have applied")
+        if val is _EXPIRED:
+            raise SessionExpiredError(
+                f"session {self.id} expired before seq {seq} committed")
+        return val
+
+    def results_window(self, seq0: int, n: int) -> np.ndarray:
+        """Vectorized :meth:`result` for a contiguous seq window."""
+        return np.fromiter((self.result(s) for s in range(seq0, seq0 + n)),
+                           np.int64, n)
+
+    # -- queries (no log append) ------------------------------------------
+
+    def query_batch(self, groups, opcode, a=0, b=0, c=0,
+                    consistency: str = "sequential") -> np.ndarray:
+        """Serve reads through the query lane (no log entry), tagged
+        with their ``consistency`` and routed by it — the full SPI read
+        vocabulary is accepted so both planes speak one language:
+        ``causal``/``sequential`` serve from the leader lane's applied
+        state (the reference's sub-ATOMIC routing), while
+        ``bounded_linearizable``/``linearizable``/``atomic`` gate each
+        slot on the leader LEASE (``RaftState.lease``) — in the
+        synchronous round model the lease round IS the linearization
+        point (no other leader can have committed), so lease-gated reads
+        serve both levels without a log append (reference
+        ``Consistency.java:157-176``). Counts as session activity
+        (keep-alive)."""
+        level = _READ_LEVELS.get(consistency)
+        if level is None:
+            raise ValueError(
+                f"unknown read consistency {consistency!r}; pick one of "
+                f"{sorted(_READ_LEVELS)}")
+        self._check_open()
+        g = np.asarray(groups, np.int64).ravel()
+        self._client._rg.metrics.counter(
+            "session_reads", consistency=consistency).inc(int(g.size))
+        self._client._registry.keep_alive(self.id)
+        edge = self._client._edge
+        all_get = False
+        if edge is not None:
+            from ..ops import apply as ops
+            all_get = bool(np.all(np.asarray(opcode) == ops.OP_VALUE_GET))
+            if all_get and consistency in ("causal", "none", "process"):
+                # edge read tier: CAUSAL-level GETs
+                # may serve from the client's replica of its own
+                # committed post-apply state rows — no engine round.
+                # SEQUENTIAL and above always drive (cross-process
+                # freshness).
+                served = edge.serve(g)
+                if served is not None:
+                    return served
+        out = self._client._driver.drive_queries(
+            g, opcode, a, b, c, consistency=level)
+        if edge is not None and all_get:
+            # engine-served answers refresh the replica so a later
+            # causal read can never regress behind what this session
+            # just observed (mixed-level monotonicity)
+            edge.refresh_from_reads(g, out)
+        return out
+
+    # -- events ------------------------------------------------------------
+
+    def on_event(self, group: int, callback: Callable[[SessionEvent], Any]
+                 ) -> Listener:
+        """Register a listener for ``group``'s session events; delivery
+        happens during :meth:`BulkSessionClient.flush`, in event-seq
+        order, starting from events newer than registration time."""
+        listeners, cursor = self._subs.get(group, (None, None))
+        if listeners is None:
+            evs = self._client._rg.events.get(group, [])
+            listeners = Listeners()
+            cursor = evs[-1][0] if evs else -1
+            self._subs[group] = (listeners, cursor)
+        return listeners.add(callback)
+
+    # -- lifecycle ---------------------------------------------------------
+
+    @property
+    def is_open(self) -> bool:
+        return not (self._dev.expired or self._dev.closed)
+
+    def keep_alive(self) -> None:
+        self._dev.keep_alive()
+
+    def close(self) -> None:
+        """Graceful close: deterministic release of every bound interest
+        (same fan-out as expiry), committed by the next flush."""
+        if self.is_open:
+            self._dev.close()
+            self._client._closed.append(self)
+
+    def _check_open(self) -> None:
+        if not self.is_open:
+            raise SessionExpiredError(f"session {self.id} is dead")
+
+
+class BulkSessionClient:
+    """The unified client runtime: sessions + exactly-once + events over
+    the pipelined bulk drive (deep mode on monotone-tag engines).
+
+    One client per process/engine is the intended shape (the reference's
+    ``AtomixClient`` with many sessions over one connection). All
+    sessions' buffered commands commit in ONE drive per :meth:`flush`.
+    """
+
+    def __init__(self, rg, *, deep_scan: bool = False) -> None:
+        self._rg = rg
+        self._driver = BulkDriver(rg, allow_sessions=True,
+                                  deep_scan=deep_scan)
+        self._registry = rg.sessions            # instantiates lazily
+        self._sessions: dict[int, BulkSession] = {}
+        self._closed: list[BulkSession] = []
+        # the device-plane edge replica; COPYCAT_EDGE_READS=0 removes it
+        self._edge = (_EdgeValueCache(rg.metrics)
+                      if knobs.get_bool("COPYCAT_EDGE_READS") else None)
+
+    # -- sessions ----------------------------------------------------------
+
+    def open_session(self) -> BulkSession:
+        s = BulkSession(self, self._registry.open_session())
+        self._sessions[s.id] = s
+        return s
+
+    # -- the data path -----------------------------------------------------
+
+    def flush(self, max_rounds: int = 10_000) -> int:
+        """Commit every session's buffered commands in one bulk drive;
+        correlate results, run session housekeeping (keep-alives, expiry
+        fan-out, cleanup commits), deliver events. Returns the number of
+        session commands committed."""
+        rg = self._rg
+        metrics = rg.metrics
+        t_flush = time.perf_counter()
+        # 1. liveness: flushing proves this client's sessions are alive
+        #    (they share this runtime), exactly like the reference's
+        #    connection-level keep-alive covering all its sessions.
+        t_ka = time.perf_counter()
+        live = 0
+        for s in self._sessions.values():
+            if s.is_open:
+                live += 1
+                self._registry.keep_alive(s.id)
+        metrics.histogram("session_keepalive_ms").record(
+            (time.perf_counter() - t_ka) * 1e3)
+        metrics.gauge("sessions_live").set(live)
+        metrics.gauge("sessions_closing").set(len(self._closed))
+        # 2. expiry sweep — fans out cleanup ops for dead sessions
+        #    (pending_cleanup on monotone engines, submit queues on
+        #    classic ones).
+        self._registry.tick()
+
+        # 3. gather: session chunks + staged cleanup ops, one drive.
+        #    A gracefully CLOSED session's buffered commands still
+        #    commit (they were accepted before close; its release
+        #    fan-out rides the same drive, behind them in batch order).
+        #    An EXPIRED session's buffered commands do NOT — its
+        #    interests were already released, so applying them now would
+        #    reorder against its own cleanup; they fail as
+        #    SessionExpiredError (the reference's unknown-session
+        #    command failure).
+        chunks: list[tuple[BulkSession | None, _Chunk]] = []
+        # Sessions leaving this client after THIS flush (graceful closes
+        # whose fan-out commits here, expiries detected here). They stay
+        # in _sessions until after _deliver_events: the reference's
+        # deliver-until-close contract — a close's own final events
+        # (lock release grants, election promotions) reach the closing
+        # session's listeners on the flush that commits the close, not
+        # never.
+        leaving: list[BulkSession] = []
+        expired = 0
+        for s in list(self._sessions.values()):
+            if s._dev.expired:
+                expired += 1
+                for ch in s._pending:
+                    s._results.update(
+                        (q, _EXPIRED)
+                        for q in range(ch.seq0, ch.seq0 + ch.groups.size))
+                s._pending = []
+                leaving.append(s)
+                continue
+            for ch in s._pending:
+                chunks.append((s, ch))
+            s._pending = []
+        leaving.extend(self._closed)
+        self._closed.clear()
+        cleanup = self._registry.pending_cleanup
+        if cleanup:
+            cl = np.asarray(cleanup, np.int64)
+            chunks.append((None, _Chunk(0, cl[:, 0],
+                                        cl[:, 1].astype(np.int32),
+                                        cl[:, 2].astype(np.int32),
+                                        np.zeros(len(cl), np.int32),
+                                        np.zeros(len(cl), np.int32))))
+            self._registry.pending_cleanup = []
+
+        committed = 0
+        if chunks:
+            cat = lambda i: np.concatenate(  # noqa: E731
+                [c[i] for _, c in chunks])
+            tag_mark = rg._next_tag
+            try:
+                res = self._driver.drive(cat(1), cat(2), cat(3), cat(4),
+                                         cat(5), max_rounds=max_rounds)
+            except Exception as exc:
+                if cleanup:
+                    # Cleanup ops are RE-STAGED on every failure —
+                    # CANCEL/RELEASE/RESIGN are idempotent no-ops when
+                    # already applied, so retrying them is always safe,
+                    # and dropping them would wedge a dead session's
+                    # locks forever.
+                    self._registry.pending_cleanup = (
+                        cleanup + self._registry.pending_cleanup)
+                if (isinstance(exc, TimeoutError)
+                        or rg._next_tag != tag_mark):
+                    if self._edge is not None:
+                        # the abandoned ops may have applied: a cached
+                        # row could hide a write RYW must surface
+                        self._edge.purge()
+                    # Abandoned drive (fault-envelope violation), or any
+                    # error raised AFTER the drive reserved its tag block
+                    # — device dispatch may have begun, so the commands
+                    # may have committed. Mark them INDETERMINATE so
+                    # result() reports the truth instead of a bare
+                    # KeyError. The tag-counter check is the dispatch
+                    # boundary: exception TYPE alone must not decide this
+                    # (a device runtime error mid-drive is not a preflight
+                    # refusal, and restoring it for retry would
+                    # double-apply non-idempotent ops).
+                    for s, ch in chunks:
+                        if s is not None:
+                            metrics.counter(
+                                "session_commands_indeterminate").inc(
+                                    int(ch.groups.size))
+                            s._results.update(
+                                (q, _INDETERMINATE)
+                                for q in range(ch.seq0,
+                                               ch.seq0 + ch.groups.size))
+                else:
+                    # Raised BEFORE any device dispatch (the drive's
+                    # preflight refusals: tag-space OverflowError,
+                    # accumulator-skew ValueError) — no tags were
+                    # consumed, so these commands definitely did not
+                    # apply. Restore them to their sessions' _pending
+                    # (original order: the chunk walk preserves
+                    # per-session submission order) and re-raise; the
+                    # caller can split the burst and re-flush without
+                    # the correlate-a-read recovery path.
+                    for s, ch in chunks:
+                        if s is not None:
+                            s._pending.append(ch)
+                self._closed.extend(
+                    s for s in leaving if not s._dev.expired)
+                raise
+            # 4. correlate: slice results back per chunk, cache by seq.
+            off = 0
+            for s, ch in chunks:
+                n = ch.groups.size
+                if s is not None:
+                    vals = res.results[off:off + n]
+                    if self._edge is not None:
+                        # post-apply state rows feed the edge replica
+                        self._edge.observe(ch.groups, ch.opcode, ch.a,
+                                           ch.b, ch.c, vals)
+                    s._results.update(
+                        zip(range(ch.seq0, ch.seq0 + n), vals.tolist()))
+                    committed += n
+                off += n
+        # 5. classic engines: expiry fan-out rode the queue-managed path;
+        #    pump it so releases land now, not at an arbitrary later step.
+        pump = 0
+        while rg._queues and pump < 16:
+            rg.step_round()
+            pump += 1
+        if pump >= 16 and rg._queues:
+            # Backpressure: the expiry/close fan-out (lock releases,
+            # resigns) did not drain within the cap — it is deferred to
+            # a later flush's pump. Loud, and counted, so a wedged
+            # cleanup shows up in metrics instead of silently delaying
+            # lock handoff.
+            rg.metrics.counter("cleanup_pump_deferred").inc()
+            logger.warning(
+                "session cleanup pump hit its %d-round cap with ops "
+                "still queued; fan-out deferred to the next flush", pump)
+        # 6. events (the drive ingested them into rg.events with seq
+        #    dedup): deliver to listeners in order, per-group cursors —
+        #    including to sessions this flush closes/expires (the
+        #    deliver-until-close contract), which are popped only after.
+        self._deliver_events()
+        for s in leaving:
+            self._sessions.pop(s.id, None)
+        if expired:
+            # a counter, not a gauge: expiry is an EVENT per flush — a
+            # gauge would read 0 again one flush later and lose history
+            metrics.counter("sessions_expired_total").inc(expired)
+        metrics.gauge("session_event_backlog").set(
+            sum(len(evs) for evs in rg.events.values()))
+        metrics.counter("session_ops_committed").inc(committed)
+        metrics.histogram("session_flush_ms").record(
+            (time.perf_counter() - t_flush) * 1e3)
+        return committed
+
+    def _deliver_events(self) -> None:
+        for s in self._sessions.values():
+            for group, (listeners, cursor) in list(s._subs.items()):
+                if not len(listeners):
+                    continue
+                new_cursor = cursor
+                try:
+                    for seq, code, target, arg in self._rg.events.get(
+                            group, []):
+                        if seq <= cursor:
+                            continue
+                        # cursor advances BEFORE dispatch: a sync
+                        # listener that raises (into the emitter, the
+                        # Listeners contract) must not cause redelivery
+                        # of already-delivered events on the next flush
+                        new_cursor = seq
+                        listeners.accept(
+                            SessionEvent(group, seq, code, target, arg))
+                finally:
+                    if new_cursor != cursor:
+                        s._subs[group] = (listeners, new_cursor)
+
+    def recover(self, settle_rounds: int = 30) -> None:
+        """Re-arm after an abandoned flush (``TimeoutError``): heal-time
+        protocol delegating to :meth:`BulkDriver.recover` — settle every
+        surviving lineage and resync the tag cursors so post-abandon tag
+        reuse is impossible. Call after restoring delivery (faults
+        healed); then flush as normal. Abandoned commands stay
+        indeterminate (read the state to learn their fate)."""
+        if self._edge is not None:
+            self._edge.purge()
+        self._driver.recover(settle_rounds=settle_rounds)
+
+    def close(self) -> None:
+        """Close every session and commit their cleanup."""
+        for s in list(self._sessions.values()):
+            s.close()
+        self.flush()

@@ -77,6 +77,12 @@ class DeviceSessionRegistry:
         self._interests: dict[int, set[tuple[int, str]]] = {}
         self._pinned: dict[int, int] = {}           # sid -> in-flight calls
         self._cleanup_tags: set[int] = set()        # fan-out op tags to reap
+        #: (group, opcode, sid) cleanup ops awaiting a bulk drive: monotone
+        #: engines refuse queue-managed submits, so their expiry fan-out is
+        #: staged here and committed by the sessioned bulk client's next
+        #: flush (``models/session_client.py``), log-ordered there like any
+        #: other op
+        self.pending_cleanup: list[tuple[int, int, int]] = []
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -159,6 +165,9 @@ class DeviceSessionRegistry:
 
     def _submit_cleanup(self, group: int, opcode: int, sid: int) -> None:
         # Cleanup fan-out is lock and election ops only, disjoint from the
-        # value pool by construction. (The reference stages it for the bulk
-        # plane on monotone-tag engines, which the port does not run yet.)
-        self._cleanup_tags.add(self._groups.submit(group, opcode, sid))
+        # value pool by construction: the bulk client's edge cache observes
+        # only sessioned chunks, which is sound while that holds.
+        if self._groups.config.monotone_tag_accept:
+            self.pending_cleanup.append((group, opcode, sid))
+        else:
+            self._cleanup_tags.add(self._groups.submit(group, opcode, sid))

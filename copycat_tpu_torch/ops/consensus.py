@@ -52,8 +52,12 @@ each lane's active view is the latest config entry in its ring, the two
 fused phases tally the leader's members against their quorum inside the
 kernel, and config changes are serialized at append. :func:`query_step`
 serves read-only ops from the leader's applied state without a log
-append. ``monotone_tag_accept`` and ``telemetry`` are not ported yet and
-raise ``NotImplementedError``.
+append. ``Config.monotone_tag_accept`` is the bulk plane's dense
+per-group tag gate, eager torch ahead of ``admit_submits``;
+``Config.telemetry`` adds a :class:`DeviceTelemetry` block of per-group
+reductions to the outputs (off, the step is unchanged, launch for
+launch). :func:`deep_step` and :func:`deep_scan` accumulate one drive's
+results on the device for ``models/bulk.py``.
 """
 
 from __future__ import annotations
@@ -72,6 +76,7 @@ from .apply import (
     apply_window,
     drain_events,
     init_resources,
+    pool_of,
 )
 from .kernels import (
     ack_commit,
@@ -82,6 +87,34 @@ from .kernels import (
 )
 
 FOLLOWER, CANDIDATE, LEADER = 0, 1, 2
+
+
+class DeviceTelemetry(NamedTuple):
+    """Per-group telemetry deltas of ONE round (``Config.telemetry``).
+
+    Every leaf is ``[G]`` int32 (``applies`` is ``[G, NUM_POOLS+1]``):
+    reductions over the peer and slot axes only, so the host sums over G.
+    Derived from values the step already computes — no draws, no state
+    writes."""
+
+    elections_started: torch.Tensor  # lanes whose timer fired this round
+    leader_changes: torch.Tensor     # elections won by a lane other than
+    #                                  the round-start leader (or leaderless)
+    term_bumps: torch.Tensor         # delta of the group-max term
+    leaderless: torch.Tensor         # 1 iff no leader at round start
+    commit_advance: torch.Tensor     # delta of the group-max commit index
+    commit_max: torch.Tensor         # post-round max commit index
+    term_max: torch.Tensor           # post-round max term over lanes
+    leader_lane: torch.Tensor        # post-round leader lane (-1 none)
+    leader_term: torch.Tensor        # its term (-1 none)
+    applies: torch.Tensor            # [G, NUM_POOLS+1] entries applied by
+    #                                  the reporting lane, by pool (last
+    #                                  column: NoOp and config entries)
+    ring_occ_max: torch.Tensor       # max over lanes of last - applied
+    submit_rejections: torch.Tensor  # valid slots rejected (requeued)
+    vote_splits: torch.Tensor        # 1 iff candidates existed, none won
+    events_drained: torch.Tensor     # leader-lane outbox events popped
+    events_dropped: torch.Tensor     # outbox drop-oldest overwrites
 
 
 class RaftState(NamedTuple):
@@ -167,14 +200,6 @@ class Config(NamedTuple):
     ring_flow_control: bool = True
 
 
-def check_config(config: Config) -> None:
-    """Raise for the config branches this package does not run yet."""
-    for name in ("monotone_tag_accept", "telemetry"):
-        if getattr(config, name):
-            raise NotImplementedError(
-                f"Config({name}=True) is not ported to copycat_tpu_torch yet")
-
-
 def draw_timers(num_groups: int, num_peers: int, config: Config,
                 generator: torch.Generator) -> torch.Tensor:
     """One ``[G, P]`` int32 draw of election timeouts in
@@ -193,7 +218,6 @@ def init_state(num_groups: int, num_peers: int, log_slots: int,
     as a ``[P]`` or ``[G, P]`` bool mask, the same view in every lane;
     lanes outside it are standbys until an ``OP_CFG_ADD`` brings them
     in."""
-    check_config(config)
     G, P, L = num_groups, num_peers, log_slots
     if tuple(timer.shape) != (G, P) or timer.dtype != torch.int32:
         raise ValueError(f"timer must be [G, P] int32, got "
@@ -404,7 +428,6 @@ def step(state: RaftState, submits: Submits, deliver: torch.Tensor,
     draws: ``fresh`` re-arms a heartbeat lane's or renewed leader's timer,
     ``cand`` a lane that starts a campaign.
     """
-    check_config(config)
     G, P = state.term.shape
     L = state.log_term.shape[-1]
     E = config.append_window
@@ -502,6 +525,29 @@ def step(state: RaftState, submits: Submits, deliver: torch.Tensor,
         # reject the window's suffix from a rejected config submit, so
         # rejections stay hole-free and per-group FIFO holds
         valid = (valid & (torch.cumsum(cfg_rejected, dim=1, dtype=i32) == 0)
+                 ).contiguous()
+    if config.monotone_tag_accept:
+        # Dense per-group tag gate: a slot is accepted only when its tag
+        # is the leader log's max live-ring tag + 1 + its rank among the
+        # window's valid slots, so duplicates and gaps are rejected. The
+        # rank counts only slots the lease lets through (the reference
+        # ANDs accept_ok into valid first). Slot j holds the unique index
+        # in (last - L, last] with (idx - 1) % L == j; election NoOps
+        # carry tag 0.
+        if not dyn:
+            valid = valid & accept_ok[:, None]
+        j_ids = torch.arange(L, dtype=i32, device=dev)[None, :]
+        idx_at = l_last[:, None] - ((l_last[:, None] - (j_ids + 1)) % L)
+        in_log = (idx_at >= 1) & (idx_at <= l_last[:, None])
+        last_stream = torch.where(in_log, l_log_tag, 0).amax(dim=1)
+        vi = valid.to(i32)
+        rank = torch.cumsum(vi, dim=1, dtype=i32) - vi
+        gate_ok = submits.tag == last_stream[:, None] + 1 + rank
+        # suffix-reject from the first gate failure: acceptance stays a
+        # hole-free prefix
+        gate_fail = valid & ~gate_ok
+        valid = (valid & gate_ok
+                 & (torch.cumsum(gate_fail, dim=1, dtype=i32) == 0)
                  ).contiguous()
     applied = state.applied_index.contiguous()
     if config.ring_flow_control:
@@ -779,6 +825,46 @@ def step(state: RaftState, submits: Submits, deliver: torch.Tensor,
                              role_f)
 
     term_f = torch.maximum(term_v, term_e)
+    tel = None
+    if config.telemetry:
+        # reductions over values computed above, per group: no draws, no
+        # state writes
+        term_max = term_f.amax(dim=1)
+        commit_max = commit2.amax(dim=1)
+        post_lead_term = torch.where(role_f == LEADER, term_f, -1)
+        post_lead = torch.argmax(post_lead_term, dim=1).to(i32)
+        post_term = post_lead_term.amax(dim=1)
+        rejected = submits.valid & ~accepted
+        if dyn:
+            rejected = rejected & ~refused
+        # entries applied by the reporting lane, by pool
+        pool_rep = rep3(pool_of(op_w))                            # [G,A]
+        k_ids = torch.arange(NUM_POOLS + 1, dtype=i32, device=dev)
+        applies_by_pool = ((pool_rep[..., None] == k_ids)
+                           & out_valid[..., None]).sum(dim=1, dtype=i32)
+        # outbox heads advance by drain pops or drop-oldest overwrites
+        pops = ev_ok.sum(dim=-1, dtype=i32)                       # [G,P]
+        head_adv = resources.ev_head - state.resources.ev_head
+        tel = DeviceTelemetry(
+            elections_started=timeout.sum(dim=1, dtype=i32),
+            leader_changes=(won & ((peer_ids[None, :] != lead[:, None])
+                                   | ~active[:, None])).sum(dim=1,
+                                                            dtype=i32),
+            term_bumps=term_max - state.term.amax(dim=1),
+            leaderless=(~active).to(i32),
+            commit_advance=commit_max - state.commit_index.amax(dim=1),
+            commit_max=commit_max,
+            term_max=term_max,
+            leader_lane=torch.where(post_term >= 0, post_lead, -1),
+            leader_term=post_term,
+            applies=applies_by_pool,
+            ring_occ_max=(last_f - applied).amax(dim=1),
+            submit_rejections=rejected.sum(dim=1, dtype=i32),
+            vote_splits=(cand_mask.any(dim=1) & ~won.any(dim=1)).to(i32),
+            events_drained=lead_ev.sum(dim=1, dtype=i32),
+            events_dropped=(head_adv - pops).clamp(min=0).amax(dim=1),
+        )
+
     new_state = RaftState(
         term=term_f, voted_for=voted_v, role=role_f,
         leader_hint=hint_f, timer=timer1, clock=clock1,
@@ -803,5 +889,94 @@ def step(state: RaftState, submits: Submits, deliver: torch.Tensor,
         out_index=torch.where(out_valid, rep3(idx_all), 0),
         out_term=torch.where(out_valid, rep3(ga(log_term2)), 0),
         leader_term=torch.where(role_f == LEADER, term_f, -1).amax(dim=1),
-        refused=refused if dyn else torch.zeros_like(submits.valid))
+        refused=refused if dyn else torch.zeros_like(submits.valid),
+        telemetry=tel)
     return new_state, outputs
+
+
+# ---------------------------------------------------------------------------
+# the deep bulk plane: results accumulated on the device
+# ---------------------------------------------------------------------------
+
+def deep_step(state: RaftState, resbuf: torch.Tensor, valbuf: torch.Tensor,
+              rndbuf: torch.Tensor, evflag: torch.Tensor, base: torch.Tensor,
+              rnd: int, submits: Submits, deliver: torch.Tensor,
+              fresh: torch.Tensor, cand: torch.Tensor, config: Config,
+              onehot: bool = False):
+    """One consensus round plus on-device result accumulation.
+
+    The deep drive (``models/bulk.py``) commits dense per-group tag
+    streams (``Config.monotone_tag_accept``), so an applied result's
+    stream rank is ``out_tag - 1 - base[g]``; each round's results and
+    resolve round ``rnd`` land in the carried ``[G, B]`` buffers at that
+    rank, and the host fetches them once a drive. ``rndbuf`` keeps the
+    earliest resolve round (at-least-once re-reports never inflate a
+    latency); ``evflag [G]`` records that a group drained a session
+    event. Returns ``(state, resbuf, valbuf, rndbuf, evflag, outputs)``.
+    """
+    state, out = step(state, submits, deliver, fresh, cand, config)
+    return _deep_accumulate(state, resbuf, valbuf, rndbuf, evflag, base,
+                            rnd, out, onehot)
+
+
+def _deep_accumulate(state, resbuf, valbuf, rndbuf, evflag, base, rnd, out,
+                     onehot):
+    """Scatter one round's applied results into the deep accumulators.
+    Reports outside ``[base+1, base+B]`` (earlier drives, election NoOps)
+    are dropped: the scatter sends them to a spill column B that is cut
+    off; the one-hot form matches no column."""
+    B = resbuf.shape[1]
+    k = out.out_tag - 1 - base[:, None]
+    ok = out.out_valid & (k >= 0) & (k < B)
+    if onehot:
+        # masked select-reduce over A; ranks are distinct within a
+        # group-round, so a sum writes each hit
+        cols = torch.arange(B, dtype=torch.int32, device=k.device)
+        hit = torch.where(ok, k, -1)[:, :, None] == cols      # [G,A,B]
+        any_hit = hit.any(dim=1)
+        resbuf = torch.where(any_hit, torch.where(
+            hit, out.out_result[:, :, None], 0).sum(dim=1, dtype=torch.int32),
+            resbuf)
+        rndbuf = torch.where(any_hit, torch.minimum(rndbuf, torch.where(
+            hit, rnd, 2 ** 30).amin(dim=1).to(torch.int32)), rndbuf)
+        valbuf = valbuf | any_hit
+    else:
+        kk = torch.where(ok, k, B).long()
+
+        def spill(buf):
+            return torch.cat([buf, buf[:, :1]], dim=1)
+
+        resbuf = spill(resbuf).scatter(1, kk, out.out_result)[:, :B]
+        rndbuf = spill(rndbuf).scatter_reduce(
+            1, kk, torch.full_like(out.out_result, rnd), "amin")[:, :B]
+        valbuf = spill(valbuf).scatter(1, kk, True)[:, :B]
+    evflag = evflag | out.ev_valid.any(dim=1)
+    return state, resbuf, valbuf, rndbuf, evflag, out
+
+
+def deep_scan(state: RaftState, resbuf: torch.Tensor, valbuf: torch.Tensor,
+              rndbuf: torch.Tensor, evflag: torch.Tensor, base: torch.Tensor,
+              submits_w: Submits, deliver: torch.Tensor, draws,
+              config: Config, onehot: bool = False):
+    """A deep drive's whole blind phase: W rounds of :func:`deep_step`
+    with the accumulators carried on the device and round w's resolve
+    round ``w``. ``submits_w`` leaves are ``[W, ...]`` (round w takes
+    ``leaf[w]``) or 0-d (the same every round); ``draws`` holds the W
+    ``(fresh, cand)`` timer draws, taken before the first round. No
+    host synchronisation inside the loop. Returns ``(state, resbuf,
+    valbuf, rndbuf, evflag, evs, tels)``: the five event leaves stacked
+    ``[W, G, D]`` and the telemetry stacked ``[W, ...]`` (None when
+    ``config.telemetry`` is off)."""
+    evs, tels = [], []
+    for w, (fresh, cand) in enumerate(draws):
+        sub = Submits(*(x[w] if x.dim() else x for x in submits_w))
+        state, resbuf, valbuf, rndbuf, evflag, out = deep_step(
+            state, resbuf, valbuf, rndbuf, evflag, base, w, sub, deliver,
+            fresh, cand, config, onehot)
+        evs.append((out.ev_seq, out.ev_code, out.ev_target, out.ev_arg,
+                    out.ev_valid))
+        tels.append(out.telemetry)
+    evs = tuple(torch.stack(x) for x in zip(*evs))
+    tel = (DeviceTelemetry(*(torch.stack(x) for x in zip(*tels)))
+           if config.telemetry else None)
+    return state, resbuf, valbuf, rndbuf, evflag, evs, tel

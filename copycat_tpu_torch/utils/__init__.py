@@ -1,0 +1,1 @@
+"""Host utilities the port keeps its own copies of."""

@@ -16,6 +16,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
+from torch_reference import release_jax_programs  # noqa: E402,F401
 import jax.numpy as jnp  # noqa: E402
 
 from copycat_tpu.ops import apply as jap  # noqa: E402

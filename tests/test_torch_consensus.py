@@ -17,6 +17,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
+from torch_reference import release_jax_programs  # noqa: E402,F401
 
 from copycat_tpu.ops import apply as jap  # noqa: E402
 from copycat_tpu.ops import consensus as jcons  # noqa: E402
@@ -258,23 +259,27 @@ def test_current_leader_ties_go_to_first_lane():
 
 @pytest.mark.parametrize("name", ["monotone_tag_accept", "telemetry"])
 def test_unported_config_branches_raise(name):
+    """The two branches that raised ``NotImplementedError`` until the deep
+    bulk plane was ported now run: a state builds and a step takes them
+    (telemetry then fills ``StepOutputs.telemetry``)."""
     cfg = tcons.Config(resource=tap.ResourceConfig.counters_only(),
                        **{name: True})
     timer = torch.full((2, 3), 5, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match=name):
-        tcons.init_state(2, 3, 8, timer, cfg)
+    state = tcons.init_state(2, 3, 8, timer, cfg)
+    _, out = tcons.step(state, tcons.make_submits(2, 4, "cpu"),
+                        tcons.full_delivery(2, 3, "cpu"), timer, timer, cfg)
+    assert (out.telemetry is not None) == (name == "telemetry")
 
 
 def test_every_pool_and_budgets_are_accepted():
-    """``check_config`` refuses only the two branches still to come;
-    ``dynamic_membership`` runs."""
+    """Every pool, budgets and ``dynamic_membership`` build a state."""
     cfg = convert.config_to_torch(jcons.Config(pool_budgets=(1,) * 8))
     assert cfg.resource == tcons.Config().resource
-    tcons.check_config(cfg)
     state = tcons.init_state(2, 3, 8, torch.full((2, 3), 5,
                                                  dtype=torch.int32), cfg)
     assert state.resources.map_key.shape == (2, 3, 16)
-    tcons.check_config(cfg._replace(dynamic_membership=True))
+    tcons.init_state(2, 3, 8, torch.full((2, 3), 5, dtype=torch.int32),
+                     cfg._replace(dynamic_membership=True))
 
 
 def test_convert_round_trips_both_ways():

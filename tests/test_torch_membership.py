@@ -27,6 +27,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
+from torch_reference import release_jax_programs  # noqa: E402,F401
 
 from copycat_tpu.models import RaftGroups as JaxRaftGroups  # noqa: E402
 from copycat_tpu.ops import apply as jap  # noqa: E402
@@ -241,7 +242,7 @@ def test_raft_groups_membership_script_matches_reference():
     _rounds(engines, 3)
     assert port.results == ref.results
     assert port.results[cfg[4]] == jap.FAIL
-    assert port.counters["ops_refused"] == 1
+    assert port.metrics.counter("ops_refused").value == 1
     voters = _lockstep(engines, lambda rg: [rg.voting_members(g)
                                             for g in range(RG)])
     assert voters[0] == [0, 1, 2, 3, 4]

@@ -131,8 +131,14 @@ def test_bench_cli_needs_cuda(monkeypatch):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             bench.main(["--scenario", scenario, "--groups", "4",
                         "--rounds", "1", "--repeats", "1"])
+    for scenario in ("host", "host_read", "session"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            bench.main(["--scenario", scenario, "--groups", "4",
+                        "--repeats", "1"])
     with pytest.raises(SystemExit):
-        bench.main(["--scenario", "host"])
+        bench.main(["--scenario", "spi"])
+    with pytest.raises(SystemExit):
+        bench.main(["--scenario", "host", "--mode", "pipelined"])
     with pytest.raises(SystemExit):
         bench.main(["--scenario", "map_read", "--read-level", "causal"])
 
@@ -149,6 +155,52 @@ def test_new_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
         bench.run_map_read("atomic", groups=4, rounds=1, repeats=1)
     rg = RaftGroups(4, 5, config=dyn, voters=3, device="cpu")
     assert rg.sessions.open_session().id >= 1 << 30
+
+
+@pytest.mark.parametrize("mode", ["deep", "deepscan", "bulk", "queued"])
+def test_host_runs_on_the_cpu(mode):
+    """The host scenario at a tiny G: every group's counter holds exactly
+    the ops committed to it; telemetry on in the deep mode."""
+    out = bench.run_host(mode, groups=6, burst=5, repeats=1, device="cpu",
+                         telemetry=mode == "deep")
+    assert out["device"] == "cpu" and out["mode"] == mode
+    assert out["value"] > 0 and out["groups_not_exactly_once"] == 0
+    assert out["launches_per_round"] == dict.fromkeys(bench.KERNELS, 0.0)
+    assert out["rounds_per_drive"] >= 1
+    if mode == "deep":
+        tel = out["device_telemetry"]
+        assert tel["device.commit_advance"] >= 6 * 5 * 2
+        assert sum(v for k, v in tel.items()
+                   if k.startswith("device.invariant_violations")) == 0
+    else:
+        assert "device_telemetry" not in out
+
+
+@pytest.mark.parametrize("read_level", ["sequential", "atomic"])
+def test_host_read_and_session_run_on_the_cpu(read_level):
+    out = bench.run_host_read(read_level, groups=6, burst=5, repeats=1,
+                              device="cpu")
+    assert out["wrong_reads"] == 0 and out["value"] > 0
+    assert out["reads_per_repetition"] == 30
+    out = bench.run_session(3, groups=6, burst=5, repeats=1, device="cpu")
+    assert out["group0_counter"] == out["group0_expected"] == 10
+    assert out["value"] > 0
+
+
+def test_deep_plane_config_branches_run(monkeypatch):
+    """``Config(monotone_tag_accept=True)`` and ``Config(telemetry=True)``
+    build and step an engine, and entry points still need the card."""
+    from copycat_tpu_torch.ops.consensus import Config
+    cfg = Config(monotone_tag_accept=True, telemetry=True)
+    rg = RaftGroups(4, 3, log_slots=16, config=cfg, device="cpu")
+    rg.wait_for_leaders()
+    assert rg.device_snapshot()["device.rounds"] == rg.rounds
+    assert rg.metrics.counter("rounds").value == rg.rounds
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        RaftGroups(4, 3, config=cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        bench.run_host("deep", groups=4, repeats=1)
 
 
 @pytest.mark.parametrize("read_level", ["sequential", "atomic"])

@@ -17,6 +17,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
+from torch_reference import release_jax_programs  # noqa: E402,F401
 
 from copycat_tpu.models import RaftGroups as JaxRaftGroups  # noqa: E402
 from copycat_tpu.ops import apply as jap  # noqa: E402
@@ -129,8 +130,8 @@ def test_query_lane_gives_the_reference_results():
     for rg in engines:
         rg.run_until(tags, max_rounds=100)
     assert port.results == ref.results
-    assert port.counters["queries_escalated"] > 0
-    assert port.counters["queries_served"] > 0
+    assert port.metrics.counter("queries_escalated").value > 0
+    assert port.metrics.counter("queries_served").value > 0
     rows = np.arange(G).repeat(3)
     keys = np.tile([0, 1, 3], G)
     vec = [rg.drive_query_vector(rows, jap.OP_MAP_GET, keys,

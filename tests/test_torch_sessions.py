@@ -16,6 +16,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
+from torch_reference import release_jax_programs  # noqa: E402,F401
 
 from copycat_tpu.models import RaftGroups as JaxRaftGroups  # noqa: E402
 from copycat_tpu.models import sessions as jsessions  # noqa: E402

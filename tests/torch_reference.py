@@ -1,13 +1,38 @@
 """Helpers for the tests that hold ``copycat_tpu_torch`` against the JAX
 reference: a port engine that draws its election timers as the
-reference's ``RaftGroups`` does, and leaf-by-leaf state comparison."""
+reference's ``RaftGroups`` does, leaf-by-leaf state comparison, and the
+fixture that releases the reference's compiled programs after each test
+file.
+
+Every XLA CPU executable a process loads holds its own memory mappings
+(about 18 each), and one pytest process running the whole suite loads
+thousands: past the kernel's ``vm.max_map_count`` (65,530 here) the next
+executable the process loads — compiled, or read back from the
+persistent compilation cache — fails to map and the process dies with a
+segmentation fault. :func:`release_jax_programs` keeps the port's tests
+from adding to that count; every ``test_torch_*`` file that runs the JAX
+reference imports it.
+"""
+
+import gc
 
 import jax
 import numpy as np
+import pytest
 import torch
 
 from copycat_tpu_torch import convert
 from copycat_tpu_torch.models import RaftGroups
+
+
+@pytest.fixture(scope="module", autouse=True)
+def release_jax_programs():
+    """At the end of the test file: drop every compiled JAX program, so
+    their executables and memory mappings are released (later files
+    compile again, or read the persistent cache)."""
+    yield
+    jax.clear_caches()
+    gc.collect()
 
 
 class ReferenceDrawnGroups(RaftGroups):
@@ -77,3 +102,86 @@ def isolate(G, P, lanes):
         dl[:, lane, :] = False
         dl[:, :, lane] = False
     return dl
+
+
+# The deep bulk plane's differential tests share one reference config and
+# one shape, so the reference's compiled programs are shared between them:
+# the bulk plane's tag gate and telemetry on, and the pools the session
+# scenarios use (value, lock, election, events).
+DEEP_SHAPE = dict(groups=8, peers=3, log_slots=16, submit_slots=4)
+
+
+def deep_config(**overrides):
+    from copycat_tpu.ops.apply import ResourceConfig
+    from copycat_tpu.ops.consensus import Config
+    return Config(monotone_tag_accept=True, telemetry=True,
+                  resource=ResourceConfig(map_slots=0, set_slots=0,
+                                          queue_slots=0, multimap_slots=0,
+                                          topic_slots=0))._replace(
+                                              **overrides)
+
+
+def engine_pair(seed, jcfg=None, leaders=True):
+    """The reference's ``RaftGroups`` and the port's, drawing the same
+    timers, at ``DEEP_SHAPE`` — with every group's leader elected."""
+    from copycat_tpu.models import RaftGroups as JaxRaftGroups
+    jcfg = jcfg or deep_config()
+    s = DEEP_SHAPE
+    ref = JaxRaftGroups(s["groups"], s["peers"], log_slots=s["log_slots"],
+                        submit_slots=s["submit_slots"], seed=seed,
+                        config=jcfg)
+    port = ReferenceDrawnGroups(s["groups"], s["peers"], s["log_slots"],
+                                s["submit_slots"], jcfg, seed=seed)
+    ref._stage_submits = _full_payload(ref)
+    if jcfg.monotone_tag_accept:
+        ref._deep_fn = _wide_accumulators(ref._deep_fn())
+    if leaders:
+        ref.wait_for_leaders()
+        port.wait_for_leaders()
+        assert_same_state(ref, port, "leaders elected")
+    return ref, port
+
+
+def _full_payload(rg):
+    """A ``_stage_submits`` for the reference's engine that hands every
+    payload leaf over as a full ``[G, S]`` array: the same values as the
+    bulk plane's scalar leaves, and one compiled signature of the
+    reference's deep program for every drive."""
+    shape = (rg.num_groups, rg.submit_slots)
+
+    def stage(sub):
+        return sub._replace(**{k: np.broadcast_to(
+            np.asarray(getattr(sub, k), np.int32), shape)
+            for k in ("opcode", "a", "b", "c")})
+    return stage
+
+
+def _wide_accumulators(prog, width=16):
+    """The reference's deep program run on accumulators padded to
+    ``width`` columns and cut back: no report lands in a padded column (a
+    drive's reports have ranks below its own width), so every value is
+    the same, and drives of up to ``width`` ops a group share one compiled
+    program."""
+    import jax.numpy as jnp
+
+    def call(state, resbuf, valbuf, rndbuf, evflag, *rest):
+        B = resbuf.shape[1]
+        if B >= width:
+            return prog(state, resbuf, valbuf, rndbuf, evflag, *rest)
+        pad = ((0, 0), (0, width - B))
+        state, r, v, n, e, out = prog(
+            state, jnp.pad(resbuf, pad), jnp.pad(valbuf, pad),
+            jnp.pad(rndbuf, pad, constant_values=2 ** 30), evflag, *rest)
+        return state, r[:, :B], v[:, :B], n[:, :B], e, out
+    return lambda: call
+
+
+def counters(rg):
+    """An engine's metric counters by flattened name."""
+    return {k: v for k, v in rg.metrics.snapshot().items()
+            if k != "uptime_s" and isinstance(v, int)}
+
+
+def snapshot(x):
+    """A metrics snapshot without its wall-clock ``uptime_s``."""
+    return {k: v for k, v in x.items() if k != "uptime_s"}
