@@ -94,7 +94,36 @@ Phases, each of which raises (and so exits non-zero) on failure:
     one deep drive (idle share, launches per round);
 17. ``host_read`` — 128 reads per group at both read levels, every read
     7; ``session`` — 16 sessions, 128 ops per group a flush, group 0's
-    counter exactly once.
+    counter exactly once;
+18. wide kernels — the runtime-P instantiations: ``RaftGroups(10_000,
+    9)`` and ``(10_000, 16)``, and ``(10_000, 9)`` with 5 voters under
+    dynamic membership adding lane 5, serving a counter op per group
+    (S=4); ``admit_submits`` and ``ack_commit`` against their plain
+    versions on the arguments each serve's step gave them, and timed
+    there beside their plain versions and bounds; the same on drawn
+    inputs at G = 10,000 (S = 16) and 1,001 (S = 5), and ``kth_largest``
+    at P = 9 and 16 on drawn rows;
+19. checkpoint — the mixed cell's engine (G=100,000 × P=5, L=32, six
+    pools, budgets, flow control) after 20 rounds under the nemesis,
+    saved with ``save_bytes`` and loaded onto the card: every leaf equal,
+    then 10 more rounds of the original and the restored engine with the
+    same deliver masks, every state and output leaf equal (the generator
+    restored); the blob's size and the save and load times; a monotone
+    engine at the host cell's shape restored between two deep drives,
+    its stream cursor rebuilt and the second drive exactly once;
+20. facades — value, long, map, set, queue, multimap, topic (a fan-out
+    to two subscribers), lock (a two-holder hand-off through the grant
+    event) and election (a hand-off on resign), each on its own group of
+    one ``RaftGroups(10_000, 3)`` at the default config (S=4), with the
+    answers of the reference's facade tests; the fused kernels against
+    their plain versions on the arguments of one of its steps;
+21. verdict — ``run_verdict`` at the reference's width (G=10,000, 5
+    lanes, 3 voters, churn, nemesis period 12) cut to 150 rounds and 30
+    sampled groups, then ``run_deep_verdict`` at 2,000 groups cut to 8
+    epochs: every history linearizable, no invariant violation; each
+    verdict's fused kernels (member-masked under churn, static in the deep
+    plane; S=4) against their plain versions on its last step's
+    arguments.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a card it exits non-zero and
@@ -785,45 +814,52 @@ def phase_engine_extras(RaftGroups, bench, convert, ap,
     return {"rounds": a.rounds}
 
 
-def masked_fns(kernels, rg) -> dict:
-    """(kernel, plain, library, bound) of each fused kernel, masked, on the
-    inputs one step of the membership engine ``rg`` gives it."""
-    from copycat_tpu_torch.ops import consensus as cons
-    seen = record_inputs(cons, ("admit_submits", "ack_commit"),
-                         rg.step_round)
+STEP_FNS = ("admit_submits", "ack_commit")
+
+
+def step_fns(kernels, seen, what: str) -> tuple[dict, dict]:
+    """(kernel, plain, library, bound) of each fused kernel on the
+    arguments a step handed it (``seen``, from ``record_inputs``), static
+    or member-masked as the step called it; and each kernel's largest
+    difference from its plain version on them (raises unless 0)."""
     a_args, a_kw = seen["admit_submits"]
     c_args, c_kw = seen["ack_commit"]
-    view = a_args[7]
-    if view is None or c_kw["view"] is None:
-        raise AssertionError("the membership step called the static kernels")
+    view = c_kw["view"]
+    masked = view is not None
     (G, P), S = a_args[0].shape, a_args[3].shape[1]
     L = c_kw["l_log_term"].shape[1]
     out = kernels.ack_commit_plain(*c_args, **c_kw)
     l_last, lead = c_kw["l_last"], c_kw["lead"]
     self_lane = torch.arange(P, device=lead.device)[None, :] == lead[:, None]
-    cand = kernels.kth_largest_masked(
-        torch.where(self_lane, l_last[:, None], out.l_match),
-        *kernels.leader_members(c_kw["view"], lead))
+    full = torch.where(self_lane, l_last[:, None], out.l_match)
+    cand = (kernels.kth_largest_masked(full, *kernels.leader_members(
+        view, lead)) if masked else kernels.kth_largest_plain(
+            full, c_kw["quorum"]))
     n_live = int(((cand >= 1) & (cand <= l_last) & (cand > l_last - L)).sum())
-    # as the static kernels' bounds, plus the leader lane's 4-byte view
-    # word a group and its popcount and member masking
     fns = {
         "admit_submits": (
             lambda: kernels.admit_submits_cuda(*a_args, **a_kw),
             lambda: kernels.admit_submits_plain(*a_args, **a_kw), None,
-            bounds(G * (4 * P + 4 + 1 + S + 4 + 4)
-                   + G * (S + 4 * S + 8 * S + 4),
-                   G * (2 * P * P + 8 * S + 2 * P))),
+            admit_bound(G, P, S, masked)),
         "ack_commit": (
             lambda: kernels.ack_commit_cuda(*c_args, **c_kw),
             lambda: kernels.ack_commit_plain(*c_args, **c_kw), None,
-            bounds(G * (6 * P + 24 * P + 17 + 4) + 4 * n_live
-                   + G * (8 * P + 10),
-                   G * (2 * P * P + 24 * P + 2 * P)))}
-    for name, (kern, plain, _, _) in fns.items():
-        max_err(kern(), plain(), f"{name} (masked) on the membership step's "
-                "inputs")
-    return fns
+            ack_bound(G, P, n_live, masked))}
+    errs = {name: max_err(kern(), plain(), f"{name}"
+                          + (" (masked)" if masked else "") + f" on {what}")
+            for name, (kern, plain, _, _) in fns.items()}
+    return fns, errs
+
+
+def masked_fns(kernels, rg) -> dict:
+    """(kernel, plain, library, bound) of each fused kernel, masked, on the
+    inputs one step of the membership engine ``rg`` gives it."""
+    from copycat_tpu_torch.ops import consensus as cons
+    seen = record_inputs(cons, STEP_FNS, rg.step_round)
+    if seen["admit_submits"][0][7] is None \
+            or seen["ack_commit"][1]["view"] is None:
+        raise AssertionError("the membership step called the static kernels")
+    return step_fns(kernels, seen, "the membership step's inputs")[0]
 
 
 def bounds(nbytes: int, ops: int) -> dict:
@@ -833,6 +869,29 @@ def bounds(nbytes: int, ops: int) -> dict:
     ops_ms = ops / SCALAR_OPS_PER_S * 1e3
     return dict(bound_ms=max(bytes_ms, ops_ms),
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def admit_bound(G: int, P: int, S: int, masked: bool = False) -> dict:
+    """Bound of one ``admit_submits`` call. Reads: applied, lead,
+    accept_ok, valid, l_last (and the leader lane's 4-byte view word when
+    masked); writes: accepted, assigned, slot (int64), l_last. Operations:
+    the rank-select's 2·P² compares, about 8 per submit slot (and the
+    member masking's 2·P)."""
+    return bounds(G * (4 * P + 4 + 1 + S + 4 + 4 * masked)
+                  + G * (S + 4 * S + 8 * S + 4),
+                  G * (2 * P * P + 8 * S + 2 * P * masked))
+
+
+def ack_bound(G: int, P: int, n_live: int, masked: bool = False) -> dict:
+    """Bound of one ``ack_commit`` call. Reads: six bool and six int32
+    [G,P] lanes, five [G] values (and the view word when masked), and one
+    ring term for each of the ``n_live`` groups whose candidate lies in
+    the live window; writes: two int32 [G,P] lanes, two bool and two int32
+    [G] values. Operations: 2·P² compares and about 24 per lane (and the
+    masking's 2·P)."""
+    return bounds(G * (6 * P + 24 * P + 17 + 4 * masked) + 4 * n_live
+                  + G * (8 * P + 10),
+                  G * (2 * P * P + 24 * P + 2 * P * masked))
 
 
 def record_inputs(cons, names, run) -> dict:
@@ -874,41 +933,8 @@ def step_inputs(bench, cons, dev, names, **cell) -> dict:
 def fused_fns(bench, cons, kernels, dev, **cell) -> dict:
     """(kernel, plain, library, bound) of each fused kernel on the inputs
     a bench cell's step gives it."""
-    seen = step_inputs(bench, cons, dev, ("admit_submits", "ack_commit"),
-                       **cell)
-    a_args, a_kw = seen["admit_submits"]
-    (G, P), S = a_args[0].shape, a_args[3].shape[1]
-    fns = {}
-    # reads: applied, lead, accept_ok, valid, l_last; writes: accepted,
-    # assigned, slot (int64), l_last. Operations: the rank-select's 2·P²
-    # compares, then about 8 per submit slot.
-    fns["admit_submits"] = (
-        lambda: kernels.admit_submits_cuda(*a_args, **a_kw),
-        lambda: kernels.admit_submits_plain(*a_args, **a_kw),
-        None,
-        bounds(G * (4 * P + 4 + 1 + S + 4) + G * (S + 4 * S + 8 * S + 4),
-               G * (2 * P * P + 8 * S)))
-    c_args, c_kw = seen["ack_commit"]
-    out = kernels.ack_commit_plain(*c_args, **c_kw)
-    (G, P), L = c_kw["recv"].shape, c_kw["l_log_term"].shape[1]
-    l_last, lead = c_kw["l_last"], c_kw["lead"]
-    self_lane = torch.arange(P, device=dev)[None, :] == lead[:, None]
-    cand = kernels.kth_largest_plain(
-        torch.where(self_lane, l_last[:, None], out.l_match), P // 2 + 1)
-    n_live = int(((cand >= 1) & (cand <= l_last) & (cand > l_last - L)).sum())
-    # reads: six bool and six int32 [G,P] lanes, five [G] values, and one
-    # ring term for each group whose candidate lies in the live window;
-    # writes: two int32 [G,P] lanes, two bool and two int32 [G] values.
-    # Operations: 2·P² compares and about 24 per lane.
-    fns["ack_commit"] = (
-        lambda: kernels.ack_commit_cuda(*c_args, **c_kw),
-        lambda: kernels.ack_commit_plain(*c_args, **c_kw),
-        None,
-        bounds(G * (6 * P + 24 * P + 17) + 4 * n_live + G * (8 * P + 10),
-               G * (2 * P * P + 24 * P)))
-    for name, (kern, plain, _, _) in fns.items():
-        max_err(kern(), plain(), f"{name} on the bench step's inputs")
-    return fns
+    seen = step_inputs(bench, cons, dev, STEP_FNS, **cell)
+    return step_fns(kernels, seen, "the bench step's inputs")[0]
 
 
 def time_fns(fns: dict, per_round: dict, where: str, card: str) -> dict:
@@ -1278,6 +1304,363 @@ def phase_host_read_session(bench, card: str) -> dict:
     return out
 
 
+WIDE_PEERS = (9, 16)        # past the unrolled instantiations (P <= 8)
+
+
+def wide_fns(kernels, cases, dev, rng, G: int, P: int, S: int, L: int,
+             masked: bool) -> dict:
+    """(kernel, plain, library, bound) of the runtime-P instantiation of
+    each quorum kernel at ``P`` lanes, on ``phase_kernel``'s inputs; the
+    kernels are checked against their plain versions first."""
+    quorum = P // 2 + 1
+    a_np = cases.admit_case(rng, G, P, S, L)
+    c_np = cases.ack_case(rng, G, P, L)
+    a, c = on_card(a_np, dev), on_card(c_np, dev)
+    c["l_log_term"] = widen_ring(c["l_log_term"])
+    if masked:
+        a["view"] = torch.from_numpy(cases.member_views(
+            rng, a_np["lead"], P)).to(dev)
+        c["view"] = torch.from_numpy(cases.member_views(
+            rng, c_np["lead"], P)).to(dev)
+    out = kernels.ack_commit_plain(**c, quorum=quorum)
+    l_last, lead = c["l_last"], c["lead"]
+    self_lane = torch.arange(P, device=dev)[None, :] == lead[:, None]
+    full = torch.where(self_lane, l_last[:, None], out.l_match)
+    cand = (kernels.kth_largest_masked(full, *kernels.leader_members(
+        c["view"], lead)) if masked else kernels.kth_largest_plain(
+            full, quorum))
+    n_live = int(((cand >= 1) & (cand <= l_last) & (cand > l_last - L)).sum())
+    fns = {
+        "admit_submits": (
+            lambda: kernels.admit_submits_cuda(**a, quorum=quorum, L=L),
+            lambda: kernels.admit_submits_plain(**a, quorum=quorum, L=L),
+            None, admit_bound(G, P, S, masked)),
+        "ack_commit": (
+            lambda: kernels.ack_commit_cuda(**c, quorum=quorum),
+            lambda: kernels.ack_commit_plain(**c, quorum=quorum), None,
+            ack_bound(G, P, n_live, masked))}
+    if not masked:
+        x = torch.from_numpy(edge_rows(rng, G, P)).to(dev)
+        fns["kth_largest"] = (
+            lambda: kernels.kth_largest_cuda(x, quorum),
+            lambda: kernels.kth_largest_plain(x, quorum),
+            lambda: torch.topk(x, quorum, dim=1).values[:, -1],
+            bounds(G * P * 4 + G * 4, 2 * G * P * P))
+    return fns
+
+
+def wide_serve(RaftGroups, ap, ks: dict, P: int, voters=None,
+               G: int = 10_000) -> tuple[dict, dict]:
+    """``RaftGroups(10_000, P)`` on the card (static membership, or
+    dynamic with ``voters`` and lane ``voters`` added by every group)
+    answering a counter op per group, each checked; the kernel counts are
+    zeroed just before and read just after. Returns the counts and the
+    fused kernels' arguments in the round that admits the ops."""
+    from copycat_tpu_torch.ops import consensus as cons
+    from copycat_tpu_torch.ops.consensus import Config
+    cfg = Config(resource=ap.ResourceConfig.counters_only(),
+                 dynamic_membership=voters is not None)
+    zero_counts(ks)
+    rg = RaftGroups(G, P, log_slots=64, submit_slots=4, config=cfg,
+                    voters=voters)
+    rg.wait_for_leaders()
+    tags = rg.submit_batch(np.arange(G), ap.OP_LONG_ADD, 3)
+    if voters is not None:
+        tags = np.concatenate([tags, rg.submit_batch(
+            np.arange(G), ap.OP_CFG_ADD, voters)])
+    seen = record_inputs(cons, STEP_FNS, rg.step_round)
+    rg.run_until(tags.tolist())
+    got = np.array([rg.results.pop(int(t)) for t in tags[:G]])
+    if (got != 3).any():
+        raise AssertionError(f"P={P}: {int((got != 3).sum())} counters "
+                             "answered other than 3")
+    if voters is not None:
+        rg.run(4)
+        if not all(voters in rg.voting_members(g) for g in (0, G // 2, G - 1)):
+            raise AssertionError(f"P={P}: lane {voters} did not join")
+    launched = counts(ks)
+    if min(launched["admit_submits"], launched["ack_commit"]) < rg.rounds:
+        raise AssertionError(f"P={P}: {launched} launches in {rg.rounds} "
+                             "rounds")
+    say(f"wide serve: RaftGroups({G}, {P}"
+        + (f", voters={voters}, dynamic membership" if voters else "")
+        + f") on the card: every counter answered, {rg.rounds} rounds, "
+        f"launches {launched}")
+    return launched, seen
+
+
+def phase_wide_kernels(RaftGroups, kernels, cases, ap, ks: dict, dev,
+                       card: str, G: int = 10_000) -> list[dict]:
+    """The runtime-P instantiations: ``RaftGroups`` at 9 and 16 peers, and
+    at 9 with dynamic membership, serving on the card; each fused kernel
+    equal to its plain version bit for bit on the arguments the serve's
+    step gave it (and timed there), and on drawn inputs at S = 16 and at
+    G = 1,001 (a partial last block); ``kth_largest`` (off the path) on
+    drawn rows."""
+    rng = np.random.default_rng(9)
+    L = 64
+    rows = []
+    for P, masked in ((9, False), (16, False), (9, True)):
+        launched, seen = wide_serve(RaftGroups, ap, ks, P,
+                                    voters=5 if masked else None, G=G)
+        fns, errs = step_fns(kernels, seen, f"the P={P} serve's step")
+        if (seen["ack_commit"][1]["view"] is not None) != masked:
+            raise AssertionError(f"P={P}: the serve called the wrong form")
+        S = seen["admit_submits"][0][3].shape[1]
+        drawn = (wide_fns(kernels, cases, dev, rng, G, P, 16, L, masked),
+                 wide_fns(kernels, cases, dev, rng, 1_001, P, 5, L, masked))
+        for name in drawn[0]:
+            for kern, plain, *_ in (d[name] for d in drawn):
+                what = f"{name} at P={P}" + (" (masked)" if masked else "")
+                got, want = kern(), plain()
+                if name == "kth_largest":
+                    err = int((got.long() - want.long()).abs().max())
+                    if err or got.dtype != want.dtype:
+                        raise AssertionError(f"{what}: err {err}")
+                else:
+                    err = max_err(got, want, what)
+                errs[name] = max(errs.get(name, 0), err)
+        tag = f"_p{P}" + ("_masked" if masked else "")
+        per_round = {n: 1.0 for n in (*fns, "kth_largest")}
+        timing = time_fns(fns, per_round, f"G={G} P={P} S={S} L={L} (the "
+                          "serve's step" + (", member-masked)" if masked
+                                            else ")"), card)
+        if not masked:
+            fns["kth_largest"] = drawn[0]["kth_largest"]
+            timing.update(time_fns({"kth_largest": fns["kth_largest"]},
+                                   per_round, f"G={G} P={P} (drawn rows)",
+                                   card))
+        for name in fns:
+            rows.append({
+                "name": (name + "_masked" if masked else name) + f"_p{P}",
+                "route": "cuda",
+                "source": "copycat_tpu_torch/csrc/"
+                          + ("kth_largest.cu" if name == "kth_largest"
+                             else "quorum_phase.cu"),
+                "replaces": "copycat_tpu/ops/pallas_kernels.py:69",
+                "launches": launched[name],
+                "max_abs_err": errs[name],
+                **{k: v for k, v in timing[name].items()
+                   if k != "launches_per_bench_round"}})
+        say(f"wide kernels{tag}: {sorted(fns)} equal to the plain versions "
+            f"bit for bit on the serve's step (S={S}) and on drawn inputs "
+            f"at G={G} (S=16) and G=1001")
+    return rows
+
+
+def _same_leaves(a, b, what: str) -> None:
+    """Every leaf of two NamedTuples of tensors or arrays equal, value,
+    dtype and shape."""
+    from copycat_tpu_torch import convert
+    la, lb = convert.flat_leaves(a), convert.flat_leaves(b)
+    if la.keys() != lb.keys():
+        raise AssertionError(f"{what}: the leaves differ")
+    for name, x in la.items():
+        y = lb[name]
+        if (x is None) != (y is None) or x is not None and (
+                x.dtype != y.dtype or not np.array_equal(x, y)):
+            raise AssertionError(f"{what}: {name} differs")
+
+
+def phase_checkpoint(RaftGroups, bench, ap, card: str, G: int = 100_000,
+                     host_groups: int = 10_000) -> dict:
+    """``save_bytes``/``load_bytes`` on the mixed cell's engine at full
+    width, the restored engine stepping bit for bit like the original;
+    then a monotone engine at the host cell's shape restored between two
+    deep drives."""
+    from copycat_tpu_torch.models import BulkDriver, checkpoint
+    P, L, S = 5, 32, 16
+    rg = RaftGroups(G, P, log_slots=L, submit_slots=S, seed=1,
+                    config=bench.scenario_config("mixed", S))
+    sub = bench.mixed_submits(G, S, rg.device)
+    delivers = bench.nemesis_delivers(30, G, P, rg.device)
+    for r in range(20):
+        rg.step_round(sub, delivers[r])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    blob = checkpoint.save_bytes(rg)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    twin = checkpoint.load_bytes(blob, device="cuda")
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    _same_leaves(rg.state, twin.state, "restored state")
+    if not torch.equal(rg.deliver, twin.deliver):
+        raise AssertionError("restored deliver differs")
+    if (twin.rounds, twin.clock, twin._next_tag) != (
+            rg.rounds, rg.clock, rg._next_tag):
+        raise AssertionError("restored host counters differ")
+    for r in range(20, 30):
+        outs = [e.step_round(sub, delivers[r]) for e in (rg, twin)]
+        _same_leaves(*outs, f"outputs of round {r}")
+        _same_leaves(rg.state, twin.state, f"state after round {r}")
+    diverged = bench.diverged_lanes(twin.state)
+    if diverged:
+        raise AssertionError(f"checkpoint: {diverged} diverged replica pairs")
+    mb = len(blob) / 1e6
+    say(f"checkpoint: G={G} P={P} L={L} S={S} mixed engine after 20 rounds "
+        f"under the nemesis: blob {mb:.1f} MB, save {save_ms:.1f} ms, load "
+        f"onto cuda {load_ms:.1f} ms, every leaf equal; 10 more rounds bit "
+        f"for bit equal (state and outputs), on {card}")
+    del rg, twin, blob
+
+    # the monotone stream cursor across a restore, at the host cell's shape
+    rg = bench._host_engine(host_groups, 3, S, True, False, None)
+    ops = np.repeat(np.arange(host_groups), 8)
+    BulkDriver(rg).drive(ops, ap.OP_LONG_ADD, 1)
+    twin = checkpoint.load_bytes(checkpoint.save_bytes(rg), device="cuda")
+    if not np.array_equal(twin._stream_count, rg._stream_count) \
+            or (twin._stream_count != 8).any():
+        raise AssertionError("checkpoint: the stream cursor was not rebuilt")
+    res = BulkDriver(twin).drive(ops, ap.OP_LONG_ADD, 1)
+    if not (res.results.reshape(-1, 8) == 8 + np.arange(1, 9)).all():
+        raise AssertionError("checkpoint: the second deep drive did not "
+                             "commit exactly once")
+    say(f"checkpoint: monotone engine G={host_groups} P=3 restored between "
+        f"two deep drives of {ops.size} ops: stream cursor rebuilt (8 a "
+        "group), the second drive exactly once")
+    return {"blob_mb": mb, "save_ms": save_ms, "load_ms": load_ms}
+
+
+def phase_facades(RaftGroups, ap, ks: dict, card: str,
+                  G: int = 10_000) -> tuple[dict, dict]:
+    """Each of the nine facades scripted on its own groups of one
+    G=10,000 × P=3 default-config engine on the card, with the reference
+    facade tests' answers; kernel counts zeroed before, read after. Then
+    the fused kernels against their plain versions on the arguments of
+    the engine's step in the ``DeviceLong`` script."""
+    from copycat_tpu_torch.models import device_resources as dr
+    from copycat_tpu_torch.ops import consensus as cons
+    from copycat_tpu_torch.ops import kernels
+    zero_counts(ks)
+    rg = RaftGroups(G, 3, log_slots=64, submit_slots=4)
+    rg.wait_for_leaders()
+    got = {}
+    v, n = dr.DeviceValue(rg, 0), dr.DeviceLong(rg, 1)
+    v.set(10)
+    got["value"] = [v.get(), v.compare_and_set(10, 20),
+                    v.compare_and_set(10, 30), v.get_and_set(5)]
+    seen = record_inputs(cons, STEP_FNS, lambda: got.update(long=[
+        n.increment_and_get(), n.add_and_get(9), n.get_and_add(5),
+        n.decrement_and_get(), n.get()]))
+    m = dr.DeviceMap(rg, 2)
+    got["map"] = [m.put(1, 100), m.get(1), m.put_if_absent(1, 999),
+                  m.put_if_absent(2, 200), m.size(), m.replace(1, 111),
+                  m.replace(42, 1), m.remove(1), m.get_or_default(1, 7)]
+    s = dr.DeviceSet(rg, 3)
+    got["set"] = [s.add(5), s.add(5), s.contains(5), s.remove(5),
+                  s.is_empty()]
+    q = dr.DeviceQueue(rg, 4)
+    q.add(1)
+    got["queue"] = [q.offer(2), q.peek(), q.size(), q.poll(), q.poll(),
+                    q.poll()]
+    mm = dr.DeviceMultiMap(rg, 5)
+    got["multimap"] = [mm.put(1, 10), mm.put(1, 11), mm.put(1, 10),
+                       mm.count(1), mm.remove_entry(1, 11), mm.remove(1),
+                       mm.is_empty()]
+    alice = dr.DeviceTopic(rg, 6, subscriber_id=1)
+    bob = dr.DeviceTopic(rg, 6, subscriber_id=2)
+    alice.subscribe()
+    bob.subscribe()
+    pub = dr.DeviceTopic(rg, 6, subscriber_id=9)
+    fan = [pub.publish(42), pub.publish(43)]
+    rg.run(4)
+    got["topic"] = fan + [alice.poll_messages(), bob.poll_messages()]
+    a = dr.DeviceLock(rg, 7, holder_id=1)
+    b = dr.DeviceLock(rg, 7, holder_id=2)
+    a.lock()
+    tag = rg.submit(7, ap.OP_LOCK_ACQUIRE, 2, -1)
+    rg.run_until([tag])
+    queued = rg.results.pop(tag)
+    a.unlock()
+    got["lock"] = [queued, b._await_grant(None),
+                   [e[2] for e in rg.events.get(7, [])
+                    if e[1] == ap.EV_LOCK_GRANT], a.try_lock()]
+    b.unlock()
+    e1 = dr.DeviceElection(rg, 8, candidate_id=11)
+    e2 = dr.DeviceElection(rg, 8, candidate_id=22)
+    epoch1 = e1.listen()
+    waiting = e2.listen()
+    e1.resign()
+    rg.run(10)
+    epoch2 = e2.poll_elected()
+    got["election"] = [epoch1 > 0, waiting, epoch2 is not None
+                       and epoch2 > epoch1, e2.is_leader(),
+                       e1.is_leader(epoch1)]
+    want = {
+        "value": [10, True, False, 20], "long": [1, 10, 10, 14, 14],
+        "map": [0, 100, False, True, 2, 100, None, 111, 7],
+        "set": [True, False, True, True, True],
+        "queue": [True, 1, 2, 1, 2, None],
+        "multimap": [True, True, False, 2, True, 1, True],
+        "topic": [2, 2, [42, 43], [42, 43]],
+        "lock": [2, True, [2], False],
+        "election": [True, None, True, True, False]}
+    if got != want:
+        bad = {k: (got[k], want[k]) for k in want if got[k] != want[k]}
+        raise AssertionError(f"facades: answers differ: {bad}")
+    launched = counts(ks)
+    if min(launched["admit_submits"], launched["ack_commit"]) < rg.rounds:
+        raise AssertionError(f"facades: launches {launched} in {rg.rounds} "
+                             "rounds")
+    _, errs = step_fns(kernels, seen, "the facades engine's step")
+    say(f"facades: value, long, map, set, queue, multimap, topic (fan-out to "
+        f"two subscribers), lock (two-holder hand-off by grant event) and "
+        f"election (hand-off on resign) answered as the reference's facade "
+        f"tests on RaftGroups({G}, 3) on {card}, {rg.rounds} rounds, "
+        f"launches {launched}; the fused kernels equal their plain versions "
+        f"on its step's arguments")
+    return launched, errs
+
+
+VERDICT = dict(groups=10_000, sample=30, rounds=150)  # the default: 99 x 1000
+DEEP_VERDICT = dict(groups=2_000, epochs=8)           # the default: 40 epochs
+
+
+def phase_verdict(ks: dict, card: str, sizes=(VERDICT, DEEP_VERDICT)
+                  ) -> dict:
+    """The linearizability verdicts on the card at the reference's width,
+    depth cut: the client plane under the nemesis (period 12) and
+    membership churn (5 lanes, 3 voters), then the deep plane; a history
+    that is not linearizable fails the run. Then each verdict's fused
+    kernels against their plain versions on its last step's arguments."""
+    from copycat_tpu_torch.ops import consensus as cons
+    from copycat_tpu_torch.ops import kernels
+    from copycat_tpu_torch.testing import verdict
+    out = {}
+    for name, run, kw in zip(("verdict", "deep verdict"),
+                             (verdict.run_verdict, verdict.run_deep_verdict),
+                             sizes):
+        zero_counts(ks)
+        t0 = time.perf_counter()
+        box = {}
+        seen = record_inputs(cons, STEP_FNS, lambda: box.update(
+            res=run(device="cuda", **kw)))
+        res = box["res"]
+        secs = time.perf_counter() - t0
+        launched = counts(ks)
+        inv = res["device_telemetry"]["invariants"]["violations"]
+        say(f"{name}: linearizable {res['linearizable']}, checked_ops "
+            f"{res['checked_ops']}, violations {res['violations']}, "
+            f"undecided {res['undecided_groups']}, invariant violations "
+            f"{inv}, {secs:.1f}s, launches {launched}, on {card}")
+        say(f"{name}: " + json.dumps(res))
+        if not res["linearizable"] or inv:
+            raise AssertionError(f"{name}: not linearizable: {res}")
+        if min(launched["admit_submits"], launched["ack_commit"]) == 0:
+            raise AssertionError(f"{name}: the fused kernels never launched")
+        masked = seen["ack_commit"][1]["view"] is not None
+        if masked != (name == "verdict"):    # churn: dynamic membership
+            raise AssertionError(f"{name}: masked kernels {masked}")
+        _, errs = step_fns(kernels, seen, f"the {name}'s last step")
+        say(f"{name}: the fused kernels ("
+            + ("member-masked" if masked else "static") + ") equal their "
+            "plain versions on its last step's arguments")
+        out[name] = dict(res, seconds=secs, launches=launched,
+                         max_abs_err=errs)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card", file=sys.stderr)
@@ -1349,8 +1732,16 @@ def main() -> int:
     deep = phase_deep_path(cons, convert, ks, dev)
     host = phase_host_bench(bench, ap, card)
     phase_host_read_session(bench, card)
+    wide_rows = phase_wide_kernels(RaftGroups, kernels, cases, ap, ks, dev,
+                                   card)
+    phase_checkpoint(RaftGroups, bench, ap, card)
+    launches["facades"], facade_errs = phase_facades(RaftGroups, ap, ks,
+                                                     card)
+    verdicts = phase_verdict(ks, card)
     say(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f}s")
+    deep_errs = verdicts["deep verdict"]["max_abs_err"]
+    verdict_errs = verdicts["verdict"]["max_abs_err"]
     sources = {"kth_largest": "kth_largest.cu",
                "admit_submits": "quorum_phase.cu",
                "ack_commit": "quorum_phase.cu"}
@@ -1367,7 +1758,12 @@ def main() -> int:
         "launches_host_deep": host["deep"]["launches"][name],
         "launches_per_host_deep_round":
             host["deep"]["launches_per_round"][name],
-        "max_abs_err": errs[name],
+        "launches_facades": launches["facades"][name],
+        "launches_deep_verdict": verdicts["deep verdict"]["launches"][name],
+        "max_abs_err": max(errs[name], facade_errs.get(name, 0),
+                           deep_errs.get(name, 0)),
+        "max_abs_err_facades": facade_errs.get(name),
+        "max_abs_err_deep_verdict": deep_errs.get(name),
         **timing[name],
         "mixed_shape": mixed_timing.get(name),
     } for name, src in sources.items()]
@@ -1380,10 +1776,14 @@ def main() -> int:
         "replaces": "copycat_tpu/ops/pallas_kernels.py:69",
         "launches": launches["membership_serve"][name],
         "launches_membership_path": membership["launches"][name],
+        "launches_verdict": verdicts["verdict"]["launches"][name],
         "launches_host_deep": 0,     # the host cells run static membership
-        "max_abs_err": errs[f"{name}_masked"],
+        "max_abs_err": max(errs[f"{name}_masked"], verdict_errs[name]),
+        "max_abs_err_verdict": verdict_errs[name],
         **masked_timing[name],
     } for name in ("admit_submits", "ack_commit")]
+    # the runtime-P instantiations (P > 8)
+    rows += wide_rows
     say(json.dumps({"kernels": rows}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -18,6 +18,13 @@ against.
   the query lane, vector drives, membership changes);
 - ``models/sessions.py`` — device sessions: keep-alives and expiry
   fan-out through the log;
+- ``models/checkpoint.py`` — save and restore an engine, in the
+  reference's format (a blob of either package loads in the other);
+- ``models/device_resources.py`` — the typed facades (value, long, map,
+  set, queue, multimap, topic, lock, election) over one group each;
+- ``testing/`` — the linearizability checker, the history recorder, the
+  device nemesis and the verdict (``python -m
+  copycat_tpu_torch.testing.verdict``);
 - ``bench.py`` — the bench of the counter, map, lock, mixed, election and
   map_read scenarios (``python -m copycat_tpu_torch.bench --scenario
   ...``);

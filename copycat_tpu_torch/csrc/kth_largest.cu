@@ -6,8 +6,10 @@
 // Replaces the TPU kernel copycat_tpu/ops/pallas_kernels.py::_kth_kernel
 // (launched by kth_largest_pallas), which ran on a [P, G] transpose with
 // the group axis on the vector lanes. Here one thread owns one group: it
-// loads the group's P lanes into registers (P <= 8) and rank-selects them
-// (quorum.cuh) — no sort, no shared memory, no transpose. The step no
+// loads the group's P lanes into registers (P <= 8, one unrolled
+// instantiation each) and rank-selects them (quorum.cuh) — no sort, no
+// shared memory, no transpose. Wider groups (P > 8) take one runtime-P
+// instantiation that rank-selects the row where it lies in device memory. The step no
 // longer launches it: the same select runs inside the two fused phase
 // kernels of quorum_phase.cu. This kernel stays the direct counterpart of
 // _kth_kernel and is held against the plain torch version.
@@ -42,6 +44,16 @@ __global__ void kth_largest_kernel(const int32_t* __restrict__ x,
   out[g] = quorum::kth_select<P>(v, k);
 }
 
+// P > 8: the same select over the row in device memory (L1 holds it).
+__global__ void kth_largest_kernel_n(const int32_t* __restrict__ x,
+                                     int32_t* __restrict__ out, int G, int P,
+                                     int k) {
+  const int g = blockIdx.x * blockDim.x + threadIdx.x;
+  if (g >= G) return;
+  const int32_t* row = x + static_cast<size_t>(g) * P;
+  out[g] = quorum::kth_select_n([row](int s) { return row[s]; }, P, k);
+}
+
 template <int P>
 void launch(const int32_t* x, int32_t* out, int G, int k, cudaStream_t s) {
   const int blocks = (G + quorum::kThreads - 1) / quorum::kThreads;
@@ -50,8 +62,8 @@ void launch(const int32_t* x, int32_t* out, int G, int k, cudaStream_t s) {
 
 }  // namespace
 
-// x: [G, P] int32, contiguous, on the device; out: [G] int32. 1 <= P <= 8
-// and 1 <= k <= P (the wrapper checks both). Launches on ``stream`` and
+// x: [G, P] int32, contiguous, on the device; out: [G] int32. P >= 1 and
+// 1 <= k <= P (the wrapper checks both). Launches on ``stream`` and
 // returns cudaGetLastError() — nonzero means the launch was refused.
 extern "C" int kth_largest_launch(const void* x, void* out, int G, int P,
                                   int k, void* stream) {
@@ -68,7 +80,10 @@ extern "C" int kth_largest_launch(const void* x, void* out, int G, int P,
     case 6: launch<6>(xi, oi, G, k, s); break;
     case 7: launch<7>(xi, oi, G, k, s); break;
     case 8: launch<8>(xi, oi, G, k, s); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    default:
+      if (P < 1) return static_cast<int>(cudaErrorInvalidValue);
+      kth_largest_kernel_n<<<(G + quorum::kThreads - 1) / quorum::kThreads,
+                             quorum::kThreads, 0, s>>>(xi, oi, G, P, k);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -27,11 +27,16 @@
 // device memory:
 //
 // - one thread owns one group, so a group needs no cross-thread
-//   reduction: P <= 8 lanes and the S submit slots are a loop;
-// - the group's P lanes sit in registers (the kernels are templated on P,
-//   so the lane loops unroll), and so do the tally, its inputs and its
-//   consumers: the rank-select of quorum.cuh runs on registers and its
-//   result feeds the admission or commit test directly;
+//   reduction: the P lanes and the S submit slots are a loop;
+// - for P <= 8 the group's P lanes sit in registers (one instantiation for
+//   each P, so the lane loops unroll), and so do the tally, its inputs and
+//   its consumers: the rank-select of quorum.cuh runs on registers and its
+//   result feeds the admission or commit test directly. Wider groups
+//   (P > 8) take one more instantiation, P = 0, with P an argument: the
+//   same per-lane code in a loop, and the same tie-broken rank-select
+//   (quorum::kth_select_n) over the row where it lies — the applied row in
+//   device memory, or the matchIndex row the thread has just written out
+//   — so each P gives the plain version's values bit for bit;
 // - adjacent threads read adjacent [P]-rows, so a warp uses every line of
 //   the [G,P] arrays it loads in full, and each thread issues all its
 //   loads before its first store;
@@ -87,6 +92,8 @@ constexpr int kStageThreads = 4;   // admit_submits: threads per group
 // shared memory, consecutive threads on consecutive elements, so every warp
 // access to device memory is coalesced; the owning thread walks its group's
 // S slots in shared memory.
+// P is the lane count of an unrolled instantiation, or 0 for the one that
+// takes it at run time as `np` (an unrolled one passes np == P).
 template <int P, bool Masked>
 __global__ void admit_submits_kernel(
     const int32_t* __restrict__ applied, const int32_t* __restrict__ view,
@@ -94,7 +101,8 @@ __global__ void admit_submits_kernel(
     const uint8_t* __restrict__ accept_ok, const uint8_t* __restrict__ valid,
     const int32_t* __restrict__ l_last, uint8_t* __restrict__ accepted,
     int32_t* __restrict__ assigned, int64_t* __restrict__ slot,
-    int32_t* __restrict__ l_last_out, int G, int S, int quorum, int L) {
+    int32_t* __restrict__ l_last_out, int G, int np, int S, int quorum,
+    int L) {
   extern __shared__ int32_t smem[];
   const int T = blockDim.x;
   const int B = T / kStageThreads;                               // groups
@@ -109,40 +117,57 @@ __global__ void admit_submits_kernel(
   const bool owner = t < nb;
 
   // The group's own inputs first, so their loads overlap the staging.
-  int32_t v[P];
+  int32_t v[P > 0 ? P : 1];
   int32_t ld = 0, last = 0;
   uint32_t members = 0;
   bool ok = false;
   if (owner) {
+    if constexpr (P > 0) {
 #pragma unroll
-    for (int p = 0; p < P; ++p) v[p] = applied[static_cast<size_t>(g) * P + p];
+      for (int p = 0; p < P; ++p)
+        v[p] = applied[static_cast<size_t>(g) * P + p];
+    }
     ld = max(lead[g], 0);
     ok = accept_ok[g] != 0;
     last = l_last[g];
     if constexpr (Masked)
-      members = static_cast<uint32_t>(view[static_cast<size_t>(g) * P + ld]);
+      members = static_cast<uint32_t>(view[static_cast<size_t>(g) * np + ld]);
   }
 #pragma unroll 4
   for (int e = t; e < n; e += T) s_flag[e] = valid[base + e];
   __syncthreads();
 
   if (owner) {
-    int32_t l_applied = v[0];
-#pragma unroll
-    for (int p = 1; p < P; ++p)
-      if (p == ld) l_applied = v[p];
     // Backpressure: the ring never overwrites an entry the leader or a
     // quorum-th replica still has to apply.
-    int32_t floor_q;
-    if constexpr (Masked) {
-      // the quorum-th among the leader's members
-      int32_t m[P];
+    int32_t l_applied, floor_q;
+    if constexpr (P > 0) {
+      l_applied = v[0];
 #pragma unroll
-      for (int p = 0; p < P; ++p)
-        m[p] = (members >> p) & 1u ? v[p] : INT32_MIN;
-      floor_q = quorum::kth_select<P>(m, quorum::of_members(members));
+      for (int p = 1; p < P; ++p)
+        if (p == ld) l_applied = v[p];
+      if constexpr (Masked) {
+        // the quorum-th among the leader's members
+        int32_t m[P];
+#pragma unroll
+        for (int p = 0; p < P; ++p)
+          m[p] = (members >> p) & 1u ? v[p] : INT32_MIN;
+        floor_q = quorum::kth_select<P>(m, quorum::of_members(members));
+      } else {
+        floor_q = quorum::kth_select<P>(v, quorum);
+      }
     } else {
-      floor_q = quorum::kth_select<P>(v, quorum);
+      const int32_t* row = applied + static_cast<size_t>(g) * np;
+      l_applied = row[ld < np ? ld : 0];
+      if constexpr (Masked)
+        floor_q = quorum::kth_select_n(
+            [row, members](int p) {
+              return (members >> p) & 1u ? row[p] : INT32_MIN;
+            },
+            np, quorum::of_members(members));
+      else
+        floor_q = quorum::kth_select_n([row](int p) { return row[p]; }, np,
+                                       quorum);
     }
     const int32_t allowed = min(l_applied, floor_q) + L;
     int32_t pos = last;
@@ -189,16 +214,46 @@ struct AckOut {
   int32_t *max_ack_term, *l_commit;  // [G]
 };
 
+// One lane's ack: the leader's new matchIndex and nextIndex for it, and
+// what it tells the leader.
+struct LaneAck {
+  int32_t match, next, term1;
+  bool seen, success;
+};
+
+__device__ __forceinline__ LaneAck lane_ack(const AckIn& in, size_t i) {
+  const bool back = in.del_back[i] != 0;
+  const bool match = in.match[i] != 0;
+  const int32_t prev = in.prev[i];
+  LaneAck a;
+  a.term1 = in.term1[i];
+  a.seen = (in.recv[i] != 0 || in.reject_term[i] != 0) && back;
+  a.success = match && back;
+  a.match = in.l_match[i];
+  a.next = in.l_next[i];
+  if (a.success) {
+    a.match = max(a.match, in.entries_sent[i] != 0 ? in.upto[i] : prev);
+    a.next = a.match + 1;
+  }
+  if (in.ok_term[i] != 0 && !match && back) {
+    const int32_t last = in.last_index[i];
+    const int32_t hint = prev <= last ? prev - 1 : last;
+    a.next = max(min(prev, hint + 1), 1);
+  }
+  return a;
+}
+
+// P as in admit_submits_kernel: unrolled, or 0 with the lane count in np.
 template <int P, bool Masked>
 __global__ void ack_commit_kernel(const AckIn in, const AckOut out, int G,
-                                  int quorum, int L) {
+                                  int np, int quorum, int L) {
   const int g = blockIdx.x * blockDim.x + threadIdx.x;
   if (g >= G) return;
   const int32_t ld = in.lead[g];
   uint32_t members = ~0u;
   if constexpr (Masked) {
     members = static_cast<uint32_t>(
-        in.view[static_cast<size_t>(g) * P + max(ld, 0)]);
+        in.view[static_cast<size_t>(g) * np + max(ld, 0)]);
     quorum = quorum::of_members(members);
   }
   const bool active = in.active[g] != 0;
@@ -208,47 +263,54 @@ __global__ void ack_commit_kernel(const AckIn in, const AckOut out, int G,
   bool higher = false;
   int32_t max_ack = INT32_MIN;  // a max over P lanes, each term1 or 0
   int acked = 0;
-  int32_t match_full[P], l_match[P], l_next[P];
-  // Every load of the group's lanes comes before any store, so the
-  // compiler issues them together.
+  int32_t cand;
+  if constexpr (P > 0) {
+    int32_t match_full[P], l_match[P], l_next[P];
+    // Every load of the group's lanes comes before any store, so the
+    // compiler issues them together.
 #pragma unroll
-  for (int p = 0; p < P; ++p) {
-    const size_t i = static_cast<size_t>(g) * P + p;
-    const bool back = in.del_back[i] != 0;
-    const bool match = in.match[i] != 0;
-    const int32_t prev = in.prev[i];
-    const int32_t term1 = in.term1[i];
-    const bool seen = (in.recv[i] != 0 || in.reject_term[i] != 0) && back;
-    higher |= seen && term1 > l_term;
-    max_ack = max(max_ack, seen ? term1 : 0);
-    const bool success = match && back;
-    l_match[p] = in.l_match[i];
-    l_next[p] = in.l_next[i];
-    if (success) {
-      l_match[p] = max(l_match[p], in.entries_sent[i] != 0 ? in.upto[i] : prev);
-      l_next[p] = l_match[p] + 1;
+    for (int p = 0; p < P; ++p) {
+      const LaneAck a = lane_ack(in, static_cast<size_t>(g) * P + p);
+      higher |= a.seen && a.term1 > l_term;
+      max_ack = max(max_ack, a.seen ? a.term1 : 0);
+      l_match[p] = a.match;
+      l_next[p] = a.next;
+      const bool self = p == ld;
+      const bool member = !Masked || ((members >> p) & 1u);
+      match_full[p] = member ? (self ? l_last : a.match) : INT32_MIN;
+      acked += (a.success || self) && member;
     }
-    if (in.ok_term[i] != 0 && !match && back) {
-      const int32_t last = in.last_index[i];
-      const int32_t hint = prev <= last ? prev - 1 : last;
-      l_next[p] = max(min(prev, hint + 1), 1);
-    }
-    const bool self = p == ld;
-    const bool member = !Masked || ((members >> p) & 1u);
-    match_full[p] = member ? (self ? l_last : l_match[p]) : INT32_MIN;
-    acked += (success || self) && member;
-  }
 #pragma unroll
-  for (int p = 0; p < P; ++p) {
-    const size_t i = static_cast<size_t>(g) * P + p;
-    out.l_match[i] = l_match[p];
-    out.l_next[i] = l_next[p];
+    for (int p = 0; p < P; ++p) {
+      const size_t i = static_cast<size_t>(g) * P + p;
+      out.l_match[i] = l_match[p];
+      out.l_next[i] = l_next[p];
+    }
+    cand = quorum::kth_select<P>(match_full, quorum);
+  } else {
+    const size_t row = static_cast<size_t>(g) * np;
+    for (int p = 0; p < np; ++p) {
+      const LaneAck a = lane_ack(in, row + p);
+      higher |= a.seen && a.term1 > l_term;
+      max_ack = max(max_ack, a.seen ? a.term1 : 0);
+      out.l_match[row + p] = a.match;
+      out.l_next[row + p] = a.next;
+      const bool member = !Masked || ((members >> p) & 1u);
+      acked += (a.success || p == ld) && member;
+    }
+    // the quorum-th over the matchIndex row this thread has just written
+    const int32_t* l_match = out.l_match + row;
+    cand = quorum::kth_select_n(
+        [=](int p) {
+          const bool member = !Masked || ((members >> p) & 1u);
+          return member ? (p == ld ? l_last : l_match[p]) : INT32_MIN;
+        },
+        np, quorum);
   }
   const bool stale = active && higher;
   const bool sound = active && !stale;
   // The commit candidate and its term: one read of the leader's ring, masked
   // by the live window (idx in [1, l_last] and within L of l_last).
-  const int32_t cand = quorum::kth_select<P>(match_full, quorum);
   const bool live = cand >= 1 && cand <= l_last && cand > l_last - L;
   const int32_t cand_term =
       live ? in.l_log_term[g * in.log_row_stride +
@@ -280,28 +342,36 @@ template <int P>
 void admit(const int32_t* applied, const int32_t* view, const int32_t* lead,
            const uint8_t* accept_ok, const uint8_t* valid,
            const int32_t* l_last, uint8_t* accepted, int32_t* assigned,
-           int64_t* slot, int32_t* l_last_out, int G, int S, int quorum,
-           int L, cudaStream_t s) {
+           int64_t* slot, int32_t* l_last_out, int G, int np, int S,
+           int quorum, int L, cudaStream_t s) {
   const int groups = admit_groups(S);
   const dim3 grid(blocks_for(G, groups)), block(kStageThreads * groups);
   if (view == nullptr)
     admit_submits_kernel<P, false><<<grid, block, 5 * S * groups, s>>>(
         applied, view, lead, accept_ok, valid, l_last, accepted, assigned,
-        slot, l_last_out, G, S, quorum, L);
+        slot, l_last_out, G, np, S, quorum, L);
   else
     admit_submits_kernel<P, true><<<grid, block, 5 * S * groups, s>>>(
         applied, view, lead, accept_ok, valid, l_last, accepted, assigned,
-        slot, l_last_out, G, S, quorum, L);
+        slot, l_last_out, G, np, S, quorum, L);
 }
 
 template <int P>
-void ack(const AckIn& in, const AckOut& out, int G, int quorum, int L,
-         cudaStream_t s) {
+void ack(const AckIn& in, const AckOut& out, int G, int np, int quorum,
+         int L, cudaStream_t s) {
   const dim3 grid(blocks_for(G, quorum::kThreads)), block(quorum::kThreads);
   if (in.view == nullptr)
-    ack_commit_kernel<P, false><<<grid, block, 0, s>>>(in, out, G, quorum, L);
+    ack_commit_kernel<P, false><<<grid, block, 0, s>>>(in, out, G, np,
+                                                       quorum, L);
   else
-    ack_commit_kernel<P, true><<<grid, block, 0, s>>>(in, out, G, quorum, L);
+    ack_commit_kernel<P, true><<<grid, block, 0, s>>>(in, out, G, np, quorum,
+                                                      L);
+}
+
+// Whether (P, view) is a shape the kernels take: any P >= 1, and no more
+// lanes than a membership word names when a view is given.
+inline bool lanes_ok(int P, const void* view) {
+  return P >= 1 && (view == nullptr || P <= quorum::kMaxMemberLanes);
 }
 
 }  // namespace
@@ -309,8 +379,9 @@ void ack(const AckIn& in, const AckOut& out, int G, int quorum, int L,
 // applied [G,P] i32, view [G,P] i32 or null (static membership), lead [G]
 // i32, accept_ok [G] u8, valid [G,S] u8,
 // l_last [G] i32 in; accepted [G,S] u8, assigned [G,S] i32, slot [G,S] i64,
-// l_last_out [G] i32 out; all contiguous on the device. 1 <= P <= 8,
-// 1 <= quorum <= P, 1 <= S <= 256, L >= 1, lead in [-1, P) (the wrapper
+// l_last_out [G] i32 out; all contiguous on the device. P >= 1 (P <= 32
+// with a view), 1 <= quorum <= P, 1 <= S <= 256, L >= 1, lead in [-1, P)
+// (the wrapper
 // checks all but the last, which is a value on the device; a lead outside
 // that range selects lane 0).
 extern "C" int admit_submits_launch(
@@ -320,7 +391,7 @@ extern "C" int admit_submits_launch(
     void* slot, void* l_last_out, int G, int P, int S, int quorum, int L,
     void* stream) {
   if (G <= 0) return 0;
-  if (S < 1 || admit_groups(S) < 32)
+  if (S < 1 || admit_groups(S) < 32 || !lanes_ok(P, view))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto* ap = static_cast<const int32_t*>(applied);
   const auto* vw = static_cast<const int32_t*>(view);
@@ -335,30 +406,40 @@ extern "C" int admit_submits_launch(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (P) {
     case 1:
-      admit<1>(ap, vw, le, ok, va, ll, ac, as, sl, lo, G, S, quorum, L, s);
+      admit<1>(ap, vw, le, ok, va, ll, ac, as, sl, lo, G, P, S, quorum, L,
+               s);
       break;
     case 2:
-      admit<2>(ap, vw, le, ok, va, ll, ac, as, sl, lo, G, S, quorum, L, s);
+      admit<2>(ap, vw, le, ok, va, ll, ac, as, sl, lo, G, P, S, quorum, L,
+               s);
       break;
     case 3:
-      admit<3>(ap, vw, le, ok, va, ll, ac, as, sl, lo, G, S, quorum, L, s);
+      admit<3>(ap, vw, le, ok, va, ll, ac, as, sl, lo, G, P, S, quorum, L,
+               s);
       break;
     case 4:
-      admit<4>(ap, vw, le, ok, va, ll, ac, as, sl, lo, G, S, quorum, L, s);
+      admit<4>(ap, vw, le, ok, va, ll, ac, as, sl, lo, G, P, S, quorum, L,
+               s);
       break;
     case 5:
-      admit<5>(ap, vw, le, ok, va, ll, ac, as, sl, lo, G, S, quorum, L, s);
+      admit<5>(ap, vw, le, ok, va, ll, ac, as, sl, lo, G, P, S, quorum, L,
+               s);
       break;
     case 6:
-      admit<6>(ap, vw, le, ok, va, ll, ac, as, sl, lo, G, S, quorum, L, s);
+      admit<6>(ap, vw, le, ok, va, ll, ac, as, sl, lo, G, P, S, quorum, L,
+               s);
       break;
     case 7:
-      admit<7>(ap, vw, le, ok, va, ll, ac, as, sl, lo, G, S, quorum, L, s);
+      admit<7>(ap, vw, le, ok, va, ll, ac, as, sl, lo, G, P, S, quorum, L,
+               s);
       break;
     case 8:
-      admit<8>(ap, vw, le, ok, va, ll, ac, as, sl, lo, G, S, quorum, L, s);
+      admit<8>(ap, vw, le, ok, va, ll, ac, as, sl, lo, G, P, S, quorum, L,
+               s);
       break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    default:
+      admit<0>(ap, vw, le, ok, va, ll, ac, as, sl, lo, G, P, S, quorum, L,
+               s);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -370,7 +451,7 @@ extern "C" int admit_submits_launch(
 // (static membership). Out: l_match_out, l_next_out [G,P] i32;
 // leader_stale, lease [G] u8; max_ack_term, l_commit_out [G] i32. All
 // contiguous on the device but l_log_term, whose rows need only be dense.
-// 1 <= P <= 8, 1 <= quorum <= P, L >= 1.
+// P >= 1 (P <= 32 with a view), 1 <= quorum <= P, L >= 1.
 extern "C" int ack_commit_launch(
     const void* recv, const void* reject_term, const void* del_back,
     const void* match, const void* entries_sent, const void* ok_term,
@@ -383,6 +464,7 @@ extern "C" int ack_commit_launch(
     void* l_commit_out,
     int G, int P, int quorum, int L, void* stream) {
   if (G <= 0) return 0;
+  if (!lanes_ok(P, view)) return static_cast<int>(cudaErrorInvalidValue);
   const auto u8 = [](const void* p) { return static_cast<const uint8_t*>(p); };
   const auto i32 = [](const void* p) { return static_cast<const int32_t*>(p); };
   const AckIn in{u8(recv),       u8(reject_term), u8(del_back), u8(match),
@@ -399,15 +481,15 @@ extern "C" int ack_commit_launch(
                    static_cast<int32_t*>(l_commit_out)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (P) {
-    case 1: ack<1>(in, out, G, quorum, L, s); break;
-    case 2: ack<2>(in, out, G, quorum, L, s); break;
-    case 3: ack<3>(in, out, G, quorum, L, s); break;
-    case 4: ack<4>(in, out, G, quorum, L, s); break;
-    case 5: ack<5>(in, out, G, quorum, L, s); break;
-    case 6: ack<6>(in, out, G, quorum, L, s); break;
-    case 7: ack<7>(in, out, G, quorum, L, s); break;
-    case 8: ack<8>(in, out, G, quorum, L, s); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    case 1: ack<1>(in, out, G, P, quorum, L, s); break;
+    case 2: ack<2>(in, out, G, P, quorum, L, s); break;
+    case 3: ack<3>(in, out, G, P, quorum, L, s); break;
+    case 4: ack<4>(in, out, G, P, quorum, L, s); break;
+    case 5: ack<5>(in, out, G, P, quorum, L, s); break;
+    case 6: ack<6>(in, out, G, P, quorum, L, s); break;
+    case 7: ack<7>(in, out, G, P, quorum, L, s); break;
+    case 8: ack<8>(in, out, G, P, quorum, L, s); break;
+    default: ack<0>(in, out, G, P, quorum, L, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

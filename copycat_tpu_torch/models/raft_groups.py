@@ -19,7 +19,9 @@ sessions (``sessions``, ``models/sessions.py``); the metrics registry
 ``COPYCAT_TELEMETRY``; monotone-tag engines, which refuse queue-managed
 submits and feed the deep bulk plane (``models/bulk.py``) through the
 single-host hooks ``_global_max_int``, ``_stage_acc``, ``_fetch_acc``
-and ``_deep_fn``. Meshes and the multi-host hooks are not ported.
+and ``_deep_fn``. ``models/checkpoint.py`` saves and restores an engine
+(state, delivery mask, generator, the host counters and event buffer).
+Meshes and the multi-host hooks are not ported.
 """
 
 from __future__ import annotations
@@ -134,7 +136,9 @@ class RaftGroups:
     pool; lock grants, election hand-offs and topic messages arrive in
     ``events``. ``voters`` (with ``Config(dynamic_membership=True)``)
     starts each group with lanes ``0..voters-1`` voting and the rest as
-    standbys. ``COPYCAT_TELEMETRY=1`` or a ``COPYCAT_INVARIANTS`` mode
+    standbys. ``state`` starts the engine from a given state (a restored
+    checkpoint's) in place of a fresh one. ``COPYCAT_TELEMETRY=1`` or a
+    ``COPYCAT_INVARIANTS`` mode
     turns ``Config.telemetry`` on (it never changes the state's
     evolution).
     """
@@ -151,6 +155,7 @@ class RaftGroups:
         seed: int = 0,
         device: torch.device | str | None = None,
         voters: int | None = None,
+        state: RaftState | None = None,
     ) -> None:
         self.num_groups = num_groups
         self.num_peers = num_peers
@@ -172,7 +177,10 @@ class RaftGroups:
         self.device = resolve_device(device)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
-        self.state: RaftState = init_state(
+        # what the reference's PRNGKey(seed) holds; a checkpoint carries it
+        # so either package can rebuild the engine's randomness
+        self.key = (0, seed & 0xFFFFFFFF)
+        self.state: RaftState = state if state is not None else init_state(
             num_groups, num_peers, log_slots,
             draw_timers(num_groups, num_peers, self.config, self.generator),
             self.config, members=members)

@@ -30,11 +30,19 @@ Differences from the reference, none of which changes a value:
 
 One difference changes values, and only where the reference's own state
 goes wrong: ``Config.ring_flow_control`` (on by default) never lets a
-lane's ring overwrite an entry it has not applied. A follower takes from
-AppendEntries only up to its applied index + L - 1, a leader admits
-submits only up to its backpressure floor + L - 1, and a lane stands for
-election (and wins) only while its ring has a free slot for the NoOp a
-winner appends. The reference
+lane's ring overwrite an entry it has not applied, and keeps every lane's
+unapplied entries at most L - 1 (``last - applied < L`` after every
+round). A follower takes from AppendEntries only up to its applied index
++ L - 1; a leader admits submits only up to its backpressure floor
++ L - 2, which keeps a slot free for the NoOp of the next election; a
+winner with that slot free appends its NoOp, and a winner whose last
+entry is an uncommitted NoOp (the one slot is spent) re-stamps that NoOp
+with its own term in place of a new one. A lane stands for election only
+when it can do one of the two. So the most up-to-date lanes can always
+stand, and the winner's NoOp always fits in its followers' rings: no
+group is left unable to elect or to commit (ROADMAP, Queue 3). Re-stamping
+changes an entry's term and nothing else: any copy of it that commits is
+the same NoOp. The reference
 copies up to ``prev + append_window`` whatever the follower has applied,
 so a follower whose apply lags its log by L or more (after a partition
 heals, or when a new leader sends from its own last index) overwrites
@@ -232,7 +240,10 @@ def init_state(num_groups: int, num_peers: int, log_slots: int,
         return torch.zeros((G, P, L), **i32)
 
     if members is None:
-        member = torch.full((G, P), (1 << P) - 1, **i32)
+        # every lane, as the int32 word the reference stores: from 32 lanes
+        # on all 32 bits (-1), the low 32 bits of 2**P - 1
+        full = ((1 << P) - 1) & 0xFFFFFFFF
+        member = torch.full((G, P), full - (full >> 31 << 32), **i32)
     else:
         m = torch.as_tensor(members, dtype=torch.bool, device=dev)
         bits = (m.expand(G, P).to(torch.int32)
@@ -551,8 +562,9 @@ def step(state: RaftState, submits: Submits, deliver: torch.Tensor,
                  ).contiguous()
     applied = state.applied_index.contiguous()
     if config.ring_flow_control:
-        # the floor counts from applied - 1: one entry fewer than the ring
-        admission = admit_submits(applied - 1, lead, accept_ok, valid,
+        # the floor counts from applied - 2: client entries fill at most
+        # L - 2 slots past it, and one is left for an election's NoOp
+        admission = admit_submits(applied - 2, lead, accept_ok, valid,
                                   l_last, quorum, L, view)
     else:
         admission = admit_submits(applied, lead, accept_ok, valid, l_last,
@@ -688,9 +700,16 @@ def step(state: RaftState, submits: Submits, deliver: torch.Tensor,
     timer1 = torch.where(ldr_down, fresh, timer1)
     timeout = ~is_ldr & ~heartbeat & ~ldr_down & (timer1 <= 0)
     if config.ring_flow_control:
-        # a lane stands for election only with a free ring slot for the
-        # NoOp it appends if it wins: its unapplied entries fill < L
-        room = last2 - state.applied_index < L
+        # a lane stands for election only if, winning, it can put a NoOp of
+        # its term at most L - 1 past its applied index: in a free slot, or
+        # over its own last entry when that is an uncommitted NoOp
+        unapplied = last2 - state.applied_index
+        tail = ((last2 - 1) % L).long()[..., None]
+        tail_noop = (last2 > commit2) \
+            & (torch.gather(log_op2, 2, tail)[..., 0] == 0) \
+            & (torch.gather(log_tag2, 2, tail)[..., 0] == 0)
+        fresh_slot = unapplied < L - 1
+        room = fresh_slot | (tail_noop & (unapplied < L))
         timeout = timeout & room
     if dyn:
         # lanes outside their own view never campaign: a removed server
@@ -738,17 +757,23 @@ def step(state: RaftState, submits: Submits, deliver: torch.Tensor,
 
     role_f = torch.where(won, LEADER, role_v)
     hint_f = torch.where(won, peer_ids[None, :], hint1)
-    # Winner initializes nextIndex/matchIndex and appends a NoOp of its term.
-    win_lane = won[:, :, None]
-    next2 = torch.where(win_lane, last2[:, :, None] + 2, next2)
-    match2 = torch.where(win_lane, 0, match2)
+    # Winner initializes nextIndex/matchIndex and appends a NoOp of its term
+    # (with flow control and no free slot: re-stamps its last entry, an
+    # uncommitted NoOp, with its term).
     noop_idx = last2 + 1
+    appended = won
+    if config.ring_flow_control:
+        appended = won & fresh_slot
+        noop_idx = torch.where(fresh_slot, noop_idx, last2)
+    win_lane = won[:, :, None]
+    next2 = torch.where(win_lane, noop_idx[:, :, None] + 1, next2)
+    match2 = torch.where(win_lane, 0, match2)
     noop_slot = (noop_idx - 1) % L
     zero2 = torch.zeros_like(term_v)
     log_term2 = _slot_write(log_term2, noop_slot, won, term_v)
-    log_op2 = _slot_write(log_op2, noop_slot, won, zero2)
-    log_time2 = _slot_write(log_time2, noop_slot, won, clock1)
-    log_tag2 = _slot_write(log_tag2, noop_slot, won, zero2)
+    log_op2 = _slot_write(log_op2, noop_slot, appended, zero2)
+    log_time2 = _slot_write(log_time2, noop_slot, appended, clock1)
+    log_tag2 = _slot_write(log_tag2, noop_slot, appended, zero2)
     last_f = torch.where(won, noop_idx, last2)
 
     # ---- phase 5: apply committed entries (all replicas, A per round) ----

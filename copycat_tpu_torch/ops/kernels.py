@@ -27,7 +27,10 @@ scalar ``quorum``.
 Each of the last three dispatches on the device of its tensors: a CPU
 tensor takes the plain version (``*_plain``), a CUDA tensor launches the
 hand-written kernel (``*_cuda``) or raises; any other device raises. Each
-dispatcher's ``launches`` counts its kernel launches.
+dispatcher's ``launches`` counts its kernel launches. The kernels take any
+P: P <= 8 runs an unrolled instantiation with the lanes in registers, a
+wider group one instantiation with P at run time; a member view takes at
+most 32 lanes, as many as its int32 bitmask names.
 
 The kernel libraries are built with ``nvcc`` at first use, one per
 ``csrc/*.cu`` source (all started at once by :func:`load_libraries`), into
@@ -56,7 +59,7 @@ PHASE_SOURCE = CSRC / "quorum_phase.cu"
 SOURCES = (KTH_SOURCE, PHASE_SOURCE)
 BUILD_DIR = _PKG_DIR / "_build"
 NVCC_DEFAULT = pathlib.Path("/usr/local/cuda/bin/nvcc")
-MAX_PEERS = 8
+MAX_MEMBER_LANES = 32    # a membership view is an int32 bitmask
 MAX_SUBMIT_SLOTS = 256   # admit_submits stages its rows in shared memory
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
@@ -375,11 +378,21 @@ def _check(what: str, dev: torch.device, args) -> None:
                 + ("" if t.is_contiguous() else ", not contiguous"))
 
 
-def _check_sizes(what: str, P: int, quorum: int) -> None:
-    if not 1 <= P <= MAX_PEERS:
-        raise ValueError(f"{what} takes 1..{MAX_PEERS} peers, got {P}")
+def _check_sizes(what: str, P: int, quorum: int, masked: bool = False
+                 ) -> None:
+    """Raise where the reference itself cannot run: no lanes, a quorum
+    outside 1..P, or a member view (dynamic membership) over more lanes
+    than its int32 bitmask names — the reference's views hold one bit a
+    lane, so its lanes from 32 on can never join a voter set."""
+    if P < 1:
+        raise ValueError(f"{what} needs at least one peer, got {P}")
     if not 1 <= quorum <= P:
         raise ValueError(f"{what}: quorum {quorum} outside 1..{P}")
+    if masked and P > MAX_MEMBER_LANES:
+        raise ValueError(
+            f"{what}: a member view is an int32 bitmask of lanes "
+            f"0..{MAX_MEMBER_LANES - 1}, so dynamic membership takes at "
+            f"most {MAX_MEMBER_LANES} peers, got {P}")
 
 
 # ---------------------------------------------------------------------------
@@ -422,7 +435,7 @@ def admit_submits_cuda(applied: torch.Tensor, lead: torch.Tensor,
                          f"valid [G, S], got {tuple(applied.shape)} and "
                          f"{tuple(valid.shape)}")
     (G, P), S = applied.shape, valid.shape[1]
-    _check_sizes("admit_submits_cuda", P, quorum)
+    _check_sizes("admit_submits_cuda", P, quorum, view is not None)
     if not 1 <= S <= MAX_SUBMIT_SLOTS:
         raise ValueError(f"admit_submits_cuda takes 1..{MAX_SUBMIT_SLOTS} "
                          f"submit slots, got {S}")
@@ -472,7 +485,7 @@ def ack_commit_cuda(*, recv: torch.Tensor, reject_term: torch.Tensor,
                          f"ring, got {tuple(recv.shape)} and "
                          f"{tuple(l_log_term.shape)}")
     (G, P), L = recv.shape, l_log_term.shape[1]
-    _check_sizes("ack_commit_cuda", P, quorum)
+    _check_sizes("ack_commit_cuda", P, quorum, view is not None)
     if L < 1:
         raise ValueError(f"ack_commit_cuda: ring size {L} < 1")
     dev, i32, b8 = recv.device, torch.int32, torch.bool

@@ -25,6 +25,23 @@ DEFAULTS: dict[str, object] = {
     "COPYCAT_INVARIANT_LEADERLESS_MAX": 1.0,
     # 0 removes the sessioned bulk client's edge read cache
     "COPYCAT_EDGE_READS": True,
+    # the linearizability verdict (testing/verdict.py): groups in its
+    # engine, groups whose histories are checked, rounds under the
+    # nemesis, the workload and nemesis seed, rounds between recorded ops
+    # of a sampled group, its bounded client concurrency, membership churn
+    # during recording, and the deep-plane block (on, its groups, sampled
+    # groups and fault epochs)
+    "COPYCAT_VERDICT_GROUPS": 10_000,
+    "COPYCAT_VERDICT_SAMPLE": 99,
+    "COPYCAT_VERDICT_ROUNDS": 1_000,
+    "COPYCAT_VERDICT_SEED": 42,
+    "COPYCAT_VERDICT_OP_EVERY": 1,
+    "COPYCAT_VERDICT_INFLIGHT": 4,
+    "COPYCAT_VERDICT_CHURN": True,
+    "COPYCAT_VERDICT_DEEP": True,
+    "COPYCAT_VERDICT_DEEP_GROUPS": 2_000,
+    "COPYCAT_VERDICT_DEEP_SAMPLE": 48,
+    "COPYCAT_VERDICT_DEEP_EPOCHS": 40,
 }
 
 
@@ -49,6 +66,16 @@ def get_str(name: str, default: str | None = None) -> str:
     if value is None:
         raise ValueError(f"{name} has no default; pass default=")
     return str(value)
+
+
+def get_int(name: str, default: int | None = None) -> int:
+    fallback = default if default is not None else _default(name)
+    value = os.environ.get(name)
+    if value is not None:
+        return int(value)
+    if fallback is None:
+        raise ValueError(f"{name} has no default; pass default=")
+    return int(fallback)
 
 
 def get_float(name: str, default: float | None = None) -> float:

@@ -257,7 +257,7 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("P", [3, 5, 7])
+@pytest.mark.parametrize("P", [3, 5, 7, 9, 16])
 def test_cuda_kernel_matches_plain(cuda_device, P):
     rng = np.random.default_rng(P)
     x = rng.integers(-1000, 1000, (10_001, P)).astype(np.int32)

@@ -141,7 +141,7 @@ def _assert_equal(got, want: dict, int64=()):
         np.testing.assert_array_equal(g, w, err_msg=name)
 
 
-@pytest.mark.parametrize("P", [3, 5, 7])
+@pytest.mark.parametrize("P", [3, 5, 7, 9, 16])
 def test_admit_submits_matches_reference(ref, P):
     quorum = P // 2 + 1
     c = cases.admit_case(np.random.default_rng(P), G, P, S, L)
@@ -157,7 +157,7 @@ def test_admit_submits_matches_reference(ref, P):
     assert (accepted.sum(1) < offered.sum(1)).any()    # cut mid-window
 
 
-@pytest.mark.parametrize("P", [3, 5, 7])
+@pytest.mark.parametrize("P", [3, 5, 7, 9, 16])
 def test_ack_commit_matches_reference(ref, P):
     quorum = P // 2 + 1
     c = cases.ack_case(np.random.default_rng(10 + P), G, P, L)
@@ -179,7 +179,7 @@ def test_ack_commit_matches_reference(ref, P):
     assert (srt[:, 1:] == srt[:, :-1]).any(axis=1).mean() > 0.3
 
 
-@pytest.mark.parametrize("P", [3, 5, 7])
+@pytest.mark.parametrize("P", [3, 5, 7, 9])
 def test_masked_phases_match_reference(ref, P):
     """Both phases with a member view: the masked tally with a per-group
     quorum, the lease over member acks."""
@@ -226,6 +226,50 @@ def test_fused_phases_take_the_plain_versions_only_on_cpu():
         kernels.ack_commit_cuda(**k, quorum=2)
 
 
+@pytest.mark.parametrize("P,masked", [(9, False), (16, False), (64, False),
+                                      (9, True), (32, True)])
+def test_wide_groups_pass_the_size_checks(P, masked):
+    """The kernels take any P (a runtime-P instantiation past the unrolled
+    ones); only a member view is bounded, by the 32 lanes its int32 word
+    names."""
+    for what in ("kth_largest_cuda", "admit_submits_cuda",
+                 "ack_commit_cuda"):
+        kernels._check_sizes(what, P, P // 2 + 1, masked)
+        with pytest.raises(ValueError, match="quorum"):
+            kernels._check_sizes(what, P, P + 1, masked)
+
+
+def test_member_views_stop_at_32_lanes():
+    with pytest.raises(ValueError, match="int32 bitmask"):
+        kernels._check_sizes("admit_submits_cuda", 33, 17, masked=True)
+    with pytest.raises(ValueError, match="at least one peer"):
+        kernels._check_sizes("ack_commit_cuda", 0, 1)
+
+
+@pytest.mark.parametrize("P", [3, 8, 9, 16, 33])
+def test_dispatch_sends_every_cuda_tensor_to_the_kernel(monkeypatch, P):
+    """Whatever P, a tensor on the card reaches the CUDA wrapper and never
+    the plain version (the device is faked: this machine may have no
+    card)."""
+    calls = []
+    for name in ("kth_largest", "admit_submits", "ack_commit"):
+        monkeypatch.setattr(kernels, f"{name}_plain",
+                            lambda *a, name=name, **k: calls.append(
+                                ("plain", name)))
+        monkeypatch.setattr(kernels, f"{name}_cuda",
+                            lambda *a, name=name, **k: calls.append(
+                                ("cuda", name)))
+    monkeypatch.setattr(kernels, "_on", lambda what, t: "cuda")
+    rng = np.random.default_rng(P)
+    a = _torch(cases.admit_case(rng, 8, P, 4, 8))
+    k = _torch(cases.ack_case(rng, 8, P, 8))
+    kernels.kth_largest(a["applied"], P // 2 + 1)
+    kernels.admit_submits(**a, quorum=P // 2 + 1, L=8)
+    kernels.ack_commit(**k, quorum=P // 2 + 1)
+    assert calls == [("cuda", "kth_largest"), ("cuda", "admit_submits"),
+                     ("cuda", "ack_commit")]
+
+
 def test_library_key_covers_the_shared_header(tmp_path):
     src = tmp_path / "k.cu"
     src.write_text("#include \"h.cuh\"\n")
@@ -247,7 +291,7 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("P", [3, 5, 7])
+@pytest.mark.parametrize("P", [3, 5, 7, 9, 16])
 def test_admit_submits_cuda_matches_plain(cuda_device, P):
     c = _torch(cases.admit_case(np.random.default_rng(P), 10_001, P, 16, 64))
     want = kernels.admit_submits_plain(**c, quorum=P // 2 + 1, L=64)
@@ -262,7 +306,7 @@ def test_admit_submits_cuda_matches_plain(cuda_device, P):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("P", [3, 5, 7])
+@pytest.mark.parametrize("P", [3, 5, 7, 9, 16])
 def test_ack_commit_cuda_matches_plain(cuda_device, P):
     c = _torch(cases.ack_case(np.random.default_rng(P), 10_001, P, 64))
     want = kernels.ack_commit_plain(**c, quorum=P // 2 + 1)
@@ -281,7 +325,7 @@ def test_ack_commit_cuda_matches_plain(cuda_device, P):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("P", [3, 5, 7])
+@pytest.mark.parametrize("P", [3, 5, 7, 9, 16])
 def test_masked_kernels_cuda_match_plain(cuda_device, P):
     """Both fused kernels with a member view, and the static path beside
     them, equal their plain versions bit for bit."""

@@ -203,3 +203,38 @@ def test_session_client_scenario_matches_reference(scenario):
     assert port.rounds == ref.rounds and port.events == ref.events
     assert counters(port) == counters(ref)
     assert_same_state(ref, port, "end")
+
+
+def classic_engine(rg, pkg, trace):
+    """``tests/test_session_client.py::test_classic_engine_compat``: the
+    client contract on an engine without the monotone gate — the classic
+    bulk drive, cleanup through the queue-managed path."""
+    client = pkg.client(rg)
+    s = client.open_session()
+    seqs = s.submit_batch([0] * 6, ap.OP_LONG_ADD, 2)
+    client.flush()
+    trace.append(s.results_window(int(seqs[0]), 6).tolist())
+    t = s.lock_acquire(1)
+    client.flush()
+    trace.append(s.result(t))
+    s.close()                                 # the release rides the queue
+    client.flush()
+    s2 = client.open_session()
+    t2 = s2.lock_acquire(1)
+    client.flush()
+    trace.append(s2.result(t2))
+    assert trace == [[2, 4, 6, 8, 10, 12], 1, 1]
+
+
+def test_classic_engine_matches_reference():
+    from torch_reference import deep_config
+    ref, port = engine_pair(seed=3, jcfg=deep_config(
+        monotone_tag_accept=False))
+    traces = []
+    for rg, pkg in ((ref, REF), (port, PORT)):
+        traces.append([])
+        classic_engine(rg, pkg, traces[-1])
+    assert traces[1] == traces[0]
+    assert port.rounds == ref.rounds and port.events == ref.events
+    assert counters(port) == counters(ref)
+    assert_same_state(ref, port, "end")

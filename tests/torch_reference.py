@@ -71,6 +71,15 @@ class ReferenceDrawnGroups(RaftGroups):
         return [self._step_draws(k) for k in jax.random.split(key, n)]
 
 
+def as_reference_drawn(rg, key):
+    """A port engine restored from a checkpoint (a plain ``RaftGroups``)
+    turned into a :class:`ReferenceDrawnGroups` whose next draws come from
+    the reference key ``key``, so it steps on with the reference's draws."""
+    rg.__class__ = ReferenceDrawnGroups
+    rg._key = jax.numpy.asarray(np.asarray(key, np.uint32))
+    return rg
+
+
 def assert_same_state(ref, port, what):
     """Every state leaf of two engines equal, value and dtype."""
     want = convert.flat_leaves(ref.state)
