@@ -123,15 +123,39 @@ Phases, each of which raises (and so exits non-zero) on failure:
     epochs: every history linearizable, no invariant violation; each
     verdict's fused kernels (member-masked under churn, static in the deep
     plane; S=4) against their plain versions on its last step's
-    arguments.
+    arguments;
+22. server — three port ``AtomixServer(executor="tpu")`` in one process
+    over the port's ``LocalTransport``, each engine
+    ``DeviceEngineConfig(capacity=10_000, num_peers=3, log_slots=64,
+    submit_slots=4)`` (every pool, on the card), and two
+    ``AtomixClient``s: 1,000 device resources (500 longs, 200 maps, 100
+    sets, 100 queues, 50 locks, 50 elections), each a ``Device*State``
+    machine on a group below capacity on every server; 200
+    ``add_and_get`` on 100 never-set longs (the CAS host path an unset
+    register takes), the other longs set to 0, then 10,000 ``add_and_get``
+    1,000 in flight (two on each long: the client's CAS-retry loop under
+    contention, through the vector pump), 1,000 map puts and
+    1,000 gets (the read pump), set adds and contains, queue offers, polls
+    and peeks, a lock hand-off between the clients on every lock and a
+    succession on every election, each answer and event checked against a
+    plain model; server 0's manager snapshot restored into a fresh server
+    whose engine reads the same; every engine's replica read through
+    ``run_query_vector`` equal to the model; 100 longs deleted and 100
+    created on exactly the freed groups, reading 0; one launch of each
+    fused kernel per server-engine round, and both against their plain
+    versions on the arguments of a server step; a profiler window of the
+    server engines' rounds.
 
-The line before the last is ``{"kernels": [...]}``; the last line is
+Each phase prints its wall time. The line before the last is
+``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a card it exits non-zero and
 prints no result.
 """
 
 from __future__ import annotations
 
+import asyncio
+import contextlib
 import json
 import sys
 import time
@@ -145,7 +169,9 @@ SCALAR_OPS_PER_S = 67e12        # H100 SXM 32-bit rate outside the tensor cores
 MIXED = dict(scenario="mixed", groups=100_000, peers=5)
 MIXED_ROUNDS, MIXED_REPEATS = 200, 3    # the reference runs 200 x 5
 SHORT_ROUNDS, SHORT_REPEATS = 20, 2
-QUERY_ROUNDS, QUERY_REPEATS = 100, 3    # the reference runs 200 x 5
+# the reference runs 200 x 5; 100 x 3 put the whole script at 61-63% of
+# its limit once the server phase was added (PERF.md, PR 7 runs 6-7)
+QUERY_ROUNDS, QUERY_REPEATS = 50, 3
 ELECTION_ROUNDS, ELECTION_REPEATS = 200, 5
 
 
@@ -894,10 +920,11 @@ def ack_bound(G: int, P: int, n_live: int, masked: bool = False) -> dict:
                   G * (2 * P * P + 24 * P + 2 * P * masked))
 
 
-def record_inputs(cons, names, run) -> dict:
-    """The arguments the consensus step hands each function of ``names``
-    (module attributes of ``cons``) in its last call while ``run()``
-    runs."""
+@contextlib.contextmanager
+def recording(cons, names):
+    """While open, the arguments the consensus step hands each function
+    of ``names`` (module attributes of ``cons``) in its last call, by
+    name, in the dict it yields."""
     seen = {}
     real = {name: getattr(cons, name) for name in names}
 
@@ -910,10 +937,17 @@ def record_inputs(cons, names, run) -> dict:
     for name in names:
         setattr(cons, name, recorder(name))
     try:
-        run()
+        yield seen
     finally:
         for name, fn in real.items():
             setattr(cons, name, fn)
+
+
+def record_inputs(cons, names, run) -> dict:
+    """The arguments the consensus step hands each function of ``names``
+    in its last call while ``run()`` runs."""
+    with recording(cons, names) as seen:
+        run()
     return seen
 
 
@@ -1080,19 +1114,38 @@ def profile_rounds(run, rounds: int, what: str, card: str) -> dict:
     return profiled(lambda: run(5, rounds), lambda _: rounds, what, card)
 
 
-def profiled(fn, rounds_of, what: str, card: str) -> dict:
-    """``fn()`` under ``torch.profiler``: wall time, summed kernel time, the
-    device's idle share and kernel launches, each per round of the
-    ``rounds_of(fn())`` rounds it ran, and the top kernels."""
+@contextlib.contextmanager
+def profiling(what: str, card: str):
+    """A ``torch.profiler`` window over the body, which stores the number
+    of rounds it ran under ``"rounds"`` in the dict this yields; on exit
+    the dict holds :func:`profile_summary` of the window. Only the CUDA
+    activity is traced: the summary reads device events alone, and
+    tracing every host op as well cost tens of seconds a window to stop
+    and summarise (and slowed the host it measures)."""
     from torch.profiler import ProfilerActivity, profile
 
+    window = {}
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        rounds = rounds_of(fn())
+        yield window
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / rounds
+        wall_ms = (time.perf_counter() - t0) * 1e3 / window["rounds"]
+    rounds = window.pop("rounds")
+    window.update(profile_summary(prof, rounds, wall_ms, what, card))
+
+
+def profiled(fn, rounds_of, what: str, card: str) -> dict:
+    """``fn()`` under :func:`profiling`: wall time, summed kernel time, the
+    device's idle share and kernel launches, each per round of the
+    ``rounds_of(fn())`` rounds it ran, and the top kernels."""
+    with profiling(what, card) as window:
+        window["rounds"] = rounds_of(fn())
+    return window
+
+
+def profile_summary(prof, rounds: int, wall_ms: float, what: str,
+                    card: str) -> dict:
     evs = prof.key_averages()
     cuda = torch.autograd.DeviceType.CUDA
     kern = [e for e in evs if getattr(e, "device_type", None) == cuda]
@@ -1103,7 +1156,7 @@ def profiled(fn, rounds_of, what: str, card: str) -> dict:
             "measured")
         return {}
     launches = sum(e.count for e in kern) / rounds
-    say(f"profile ({what}, on {card}, profiler on): wall "
+    say(f"profile ({what}, on {card}, profiler on, CUDA activity): wall "
         f"{wall_ms:.3f} ms/round, kernel time {busy_ms:.3f} ms/round, device "
         f"idle share {1 - busy_ms / wall_ms:.4f}, {launches:.1f} kernel "
         f"launches/round over {rounds} rounds")
@@ -1661,6 +1714,420 @@ def phase_verdict(ks: dict, card: str, sizes=(VERDICT, DEEP_VERDICT)
     return out
 
 
+SERVER_ENGINE = dict(capacity=10_000, num_peers=3, log_slots=64,
+                     submit_slots=4)
+SERVER_MIX = dict(long=500, map=200, set=100, queue=100, lock=50,
+                  election=50)
+SERVER_WAVES, SERVER_REUSE = 10, 100    # add_and_get waves, groups reused
+SERVER_UNSET = 100                      # longs the never-set wave runs on
+SERVER_KINDS = dict(long="DeviceAtomicValueState", map="DeviceMapState",
+                    set="DeviceSetState", queue="DeviceQueueState",
+                    lock="DeviceLockState",
+                    election="DeviceLeaderElectionState")
+
+
+class ServerCluster:
+    """Three port ``AtomixServer``s (executor="tpu", one device engine
+    each) and two ``AtomixClient``s in one process over the port's
+    ``LocalTransport``."""
+
+    def __init__(self, engine_config) -> None:
+        from copycat_tpu_torch.io.local import (LocalServerRegistry,
+                                                LocalTransport)
+        from copycat_tpu_torch.io.transport import Address
+        from copycat_tpu_torch.manager.atomix import (AtomixClient,
+                                                      AtomixServer)
+        self.config = engine_config
+        registry = LocalServerRegistry()
+        self.addrs = [Address("local", 9100 + i) for i in range(3)]
+        self.servers = [
+            AtomixServer(a, self.addrs, LocalTransport(registry),
+                         election_timeout=1.0, heartbeat_interval=0.2,
+                         session_timeout=120.0, executor="tpu",
+                         engine_config=engine_config)
+            for a in self.addrs]
+        self.clients = [AtomixClient(self.addrs, LocalTransport(registry),
+                                     session_timeout=120.0)
+                        for _ in range(2)]
+
+    async def open(self) -> None:
+        await asyncio.gather(*(s.open() for s in self.servers))
+        for c in self.clients:
+            await c.open()
+
+    async def close(self) -> None:
+        for node in self.clients + self.servers:
+            await asyncio.wait_for(node.close(), 30)
+
+    def managers(self) -> list:
+        return [s.server.state_machine for s in self.servers]
+
+    def rounds(self) -> list[int]:
+        return [m.device_engine._groups.rounds for m in self.managers()]
+
+    async def settle(self) -> None:
+        """Wait until every server has applied what any has committed."""
+        target = max(s.server.commit_index for s in self.servers)
+        for _ in range(3000):
+            if min(s.server.last_applied for s in self.servers) >= target:
+                return
+            await asyncio.sleep(0.02)
+        raise AssertionError("server: the followers did not catch up")
+
+
+def group_of(mgr, key: str) -> int:
+    return mgr.resources[mgr.keys[key]].state_machine._group
+
+
+def replica_reads(mgr, ap, longs: list, puts: list) -> tuple:
+    """The longs ``longs`` and the map entries ``puts`` read through the
+    manager's engine (``run_query_vector``) on the groups it placed them
+    in."""
+    eng = mgr.device_engine
+    lg = [group_of(mgr, k) for k in longs]
+    n = len(lg)
+    got_longs = eng.run_query_vector(lg, [ap.OP_VALUE_GET] * n, [0] * n,
+                                     [0] * n, [0] * n)
+    mg = [group_of(mgr, m) for m, _, _ in puts]
+    n = len(mg)
+    got_maps = eng.run_query_vector(mg, [ap.OP_MAP_GET] * n,
+                                    [k for _, k, _ in puts], [0] * n,
+                                    [0] * n)
+    return got_longs, got_maps
+
+
+async def each(coros, chunk: int = 1000) -> list:
+    """Await ``coros``, ``chunk`` of them in flight at a time."""
+    out = []
+    coros = list(coros)
+    for i in range(0, len(coros), chunk):
+        out += await asyncio.gather(*coros[i:i + chunk])
+    return out
+
+
+async def until(cond, what: str) -> None:
+    for _ in range(600):
+        if cond():
+            return
+        await asyncio.sleep(0.05)
+    raise AssertionError(f"server: {what}")
+
+
+TRAFFIC = ("longs", "maps", "sets", "queues", "locks", "elections")
+
+
+async def server_traffic(cluster, ap, cons, card: str) -> dict:
+    """The ``server`` phase on an open cluster, every answer and event
+    checked against a plain Python model: the longs, maps and sets with
+    their traffic; server 0's manager snapshot restored into a fresh
+    server; the queues, locks and elections with theirs; every replica
+    read through its engine; freed groups reused. Each stage's wall
+    seconds and engine rounds (all servers) go into ``stages``; also the
+    arguments one server-engine step handed the fused kernels (``seen``)
+    and a profiler window of the server engines' rounds."""
+    from copycat_tpu_torch.atomic import DistributedAtomicLong
+    from copycat_tpu_torch.collections import (DistributedMap,
+                                               DistributedQueue,
+                                               DistributedSet)
+    from copycat_tpu_torch.coordination import (DistributedLeaderElection,
+                                                DistributedLock)
+    from copycat_tpu_torch.manager.atomix import AtomixServer
+    from copycat_tpu_torch.io.local import LocalServerRegistry, LocalTransport
+    from copycat_tpu_torch.io.transport import Address
+    c1, c2 = cluster.clients
+    rng = np.random.default_rng(7)
+    keys = {kind: [f"{kind}{i}" for i in range(n)]
+            for kind, n in SERVER_MIX.items()}
+    out = dict(keys=keys, seen=None, profile={}, stages={}, wave_s=[])
+    answered = 0
+
+    @contextlib.asynccontextmanager
+    async def stage(name: str):
+        t, r = time.perf_counter(), sum(cluster.rounds())
+        yield
+        s, n = out["stages"].get(name, (0.0, 0))
+        out["stages"][name] = (round(s + time.perf_counter() - t, 3),
+                               n + sum(cluster.rounds()) - r)
+
+    async with stage("create"):
+        longs = await each(c1.get(k, DistributedAtomicLong)
+                           for k in keys["long"])
+        maps = await each(c1.get(k, DistributedMap) for k in keys["map"])
+        sets = await each(c1.get(k, DistributedSet) for k in keys["set"])
+    model = [0] * len(longs)
+
+    async def long_wave(n: int = len(longs)) -> float:
+        """Two ``add_and_get`` racing on each of the first ``n`` longs, all
+        in flight at once; returns the wave's wall seconds."""
+        nonlocal answered
+        t_wave = time.perf_counter()
+        amounts = rng.integers(-1000, 1000, n)
+        got = await each((lg.add_and_get(int(a)) for lg, a in
+                          zip(longs[:n] * 2, np.tile(amounts, 2))),
+                         chunk=2 * n)
+        answered += len(got)
+        for i, a in enumerate(amounts):
+            s, a = model[i], int(a)
+            pair = sorted((got[i], got[i + n]))
+            if pair != sorted((s + a, s + 2 * a)):
+                raise AssertionError(f"server: long {i} answered {pair} "
+                                     f"after {s} + 2 x {a}")
+            model[i] = s + 2 * a
+        return round(time.perf_counter() - t_wave, 3)
+
+    async with stage("longs"):
+        # a first wave on never-set longs: an add_and_get is the client's
+        # CAS-retry loop, and two of them racing on an unset register
+        # take the CAS's host path, one device query each (the
+        # reference's semantics, met by every fresh long); every other
+        # register is then set once, so the waves below take the device
+        # path alone
+        out["unset_wave_s"] = await long_wave(SERVER_UNSET)
+        rest = longs[SERVER_UNSET:]
+        if await each(lg.set(0) for lg in rest) != [None] * len(rest):
+            raise AssertionError("server: a set answered a value")
+        answered += len(rest)
+        with recording(cons, STEP_FNS) as seen:
+            out["wave_s"].append(await long_wave())
+        out["seen"] = dict(seen)
+    # a profiler window of whole waves, at least 10 rounds of the three
+    # servers' engines; its own stage, since the profiler's tracing and
+    # summary cost wall time of their own
+    async with stage("profiled waves"):
+        r0, a0 = sum(cluster.rounds()), answered
+        what = ("the server engines' rounds over whole waves of "
+                f"{2 * len(longs)} add_and_get through three servers' "
+                f"vector pumps, G={cluster.config.capacity} P=3 L=64 S=4, "
+                "every pool")
+        with profiling(what, card) as window:
+            while (sum(cluster.rounds()) - r0 < 10
+                   and len(out["wave_s"]) < SERVER_WAVES):
+                out["wave_s"].append(await long_wave())
+            window["rounds"] = sum(cluster.rounds()) - r0
+        out["profile"] = window
+        out["profiled_ops"] = answered - a0
+    async with stage("longs"):
+        while len(out["wave_s"]) < SERVER_WAVES:
+            out["wave_s"].append(await long_wave())
+    per_map = 5
+    puts = [(keys["map"][i], int(k), int(v)) for i in range(len(maps))
+            for k, v in zip(rng.choice(1000, per_map, replace=False),
+                            rng.integers(0, 10 ** 6, per_map))]
+    by_key = dict(zip(keys["map"], maps))
+    async with stage("maps"):
+        got = await each(by_key[m].put(k, v) for m, k, v in puts)
+        if any(g is not None for g in got):
+            raise AssertionError("server: a put of a fresh key returned a "
+                                 "value")
+        device_reads = [
+            s.server.metrics.counter("query_ops_device_lane").value
+            for s in cluster.servers]
+        got = await each(by_key[m].get(k) for m, k, _ in puts)
+        if got != [v for _, _, v in puts]:
+            raise AssertionError("server: map gets differ from the puts")
+        device_reads = sum(
+            s.server.metrics.counter("query_ops_device_lane").value - r
+            for s, r in zip(cluster.servers, device_reads))
+        if device_reads == 0:
+            raise AssertionError("server: no read went through the read "
+                                 "pump")
+        answered += 2 * len(puts)
+    async with stage("sets"):
+        adds = await each(s.add(v) for v in (1, 2, 3, 2) for s in sets)
+        has = await each(s.contains(v) for v in (3, 4) for s in sets)
+        if adds != [True] * (3 * len(sets)) + [False] * len(sets) \
+                or has != [True] * len(sets) + [False] * len(sets):
+            raise AssertionError("server: set answers differ from the model")
+        answered += len(adds) + len(has)
+    # server 0's manager snapshot (the catalog and the engine blob, the
+    # port's checkpoint) restored into a fresh, unopened server
+    await cluster.settle()
+    mgr = cluster.managers()[0]
+    t_snap = time.perf_counter()
+    blob = mgr.snapshot_state()
+    if blob is NotImplemented or blob["engine"] is None:
+        raise AssertionError("server: the manager did not snapshot")
+    spare = Address("local", cluster.addrs[-1].port + 1)
+    fresh = AtomixServer(spare, [spare],
+                         LocalTransport(LocalServerRegistry()),
+                         executor="tpu", engine_config=cluster.config)
+    restored = fresh.server.state_machine
+    restored.restore_state(blob, {})
+    got = replica_reads(restored, ap, keys["long"], puts)
+    out["restore_s"] = time.perf_counter() - t_snap
+    out["blob_mb"] = len(blob["engine"]) / 2 ** 20
+    if got != (model, [v for _, _, v in puts]) \
+            or restored.device_engine._groups.device \
+            != mgr.device_engine._groups.device \
+            or restored.keys != mgr.keys:
+        raise AssertionError("server: the restored server reads differ")
+    del fresh, restored
+    async with stage("create 2"):
+        queues = await each(c1.get(k, DistributedQueue)
+                            for k in keys["queue"])
+        locks = [await each(c.get(k, DistributedLock) for k in keys["lock"])
+                 for c in (c1, c2)]
+        elects = [await each(c.get(k, DistributedLeaderElection)
+                             for k in keys["election"]) for c in (c1, c2)]
+    await cluster.settle()
+    capacity = cluster.config.capacity
+    for m in cluster.managers():
+        for kind, names in keys.items():
+            for k in names:
+                sm = m.resources[m.keys[k]].state_machine
+                if type(sm).__name__ != SERVER_KINDS[kind] \
+                        or not 0 <= sm._group < capacity:
+                    raise AssertionError(
+                        f"server: {k} is a {type(sm).__name__} on group "
+                        f"{getattr(sm, '_group', None)}")
+    async with stage("queues"):
+        offers = await each(q.offer(v) for v in (7, 8, 9) for q in queues)
+        polls = await each(q.poll() for _ in range(2) for q in queues)
+        peeks = await each(q.peek() for q in queues)
+        if offers != [True] * (3 * len(queues)) \
+                or polls != [7] * len(queues) + [8] * len(queues) \
+                or peeks != [9] * len(queues):
+            raise AssertionError("server: queue answers differ from the "
+                                 "model")
+        answered += len(offers) + len(polls) + len(peeks)
+    # a lock hand-off on every lock: client 1 holds, client 2 queues, the
+    # release grants it to client 2 (the grant event)
+    async with stage("locks"):
+        await each(lk.lock() for lk in locks[0])
+        tries = await each(lk.try_lock() for lk in locks[1])
+        waiters = [asyncio.ensure_future(lk.lock()) for lk in locks[1]]
+        await asyncio.sleep(0.5)
+        if any(tries) or any(w.done() for w in waiters):
+            raise AssertionError("server: a held lock was granted twice")
+        await each(lk.unlock() for lk in locks[0])
+        await asyncio.wait_for(asyncio.gather(*waiters), 120)
+        held = await each(lk.try_lock() for lk in locks[0])
+        await each(lk.unlock() for lk in locks[1])
+        if any(held):
+            raise AssertionError("server: a handed-off lock was free")
+        answered += 6 * len(locks[0])
+    # a succession on every election: client 1's candidate wins, client
+    # 2's waits, client 1 resigns and client 2's is promoted
+    async with stage("elections"):
+        epochs = [[[] for _ in elects[0]] for _ in range(2)]
+        await each(e.on_election(epochs[0][i].append)
+                   for i, e in enumerate(elects[0]))
+        await each(e.on_election(epochs[1][i].append)
+                   for i, e in enumerate(elects[1]))
+        await until(lambda: all(epochs[0]),
+                    "a first candidate was not elected")
+        if any(epochs[1]):
+            raise AssertionError("server: two leaders of one election")
+        await each(e.resign() for e in elects[0])
+        await until(lambda: all(epochs[1]), "a successor was not promoted")
+        fenced = await each(
+            e.is_leader(epochs[j][i][0]) for j in (1, 0)
+            for i, e in enumerate(elects[1]))
+        if fenced != [True] * len(elects[1]) + [False] * len(elects[1]) \
+                or any(b[0] <= a[0] for a, b in zip(*epochs)):
+            raise AssertionError("server: election epochs differ from the "
+                                 "model")
+        answered += 5 * len(elects[0])
+    # every replica, read through its own engine, equals the model
+    await cluster.settle()
+    for i, m in enumerate(cluster.managers()):
+        if replica_reads(m, ap, keys["long"], puts) != (
+                model, [v for _, _, v in puts]):
+            raise AssertionError(f"server: engine {i}'s replica differs "
+                                 "from the model")
+    # group reuse: longs deleted, as many new ones take their groups
+    # (on every server) and read 0
+    reuse = SERVER_REUSE
+    freed = [{group_of(m, k) for k in keys["long"][:reuse]}
+             for m in cluster.managers()]
+    async with stage("reuse"):
+        await asyncio.gather(*(lg.delete() for lg in longs[:reuse]))
+        fresh = await asyncio.gather(*(
+            c1.get(f"relong{i}", DistributedAtomicLong)
+            for i in range(reuse)))
+        zeros = await asyncio.gather(*(f.get() for f in fresh))
+        await cluster.settle()
+    for m, want in zip(cluster.managers(), freed):
+        got = {group_of(m, f"relong{i}") for i in range(reuse)}
+        if got != want:
+            raise AssertionError(f"server: new resources took groups "
+                                 f"{sorted(got)}, not the freed "
+                                 f"{sorted(want)}")
+    if zeros != [0] * reuse:
+        raise AssertionError("server: a reused group was not clean")
+    st = out["stages"]
+    out.update(answered=answered - out.get("profiled_ops", 0),
+               traffic_s=sum(st[k][0] for k in TRAFFIC),
+               create_s=st["create"][0] + st["create 2"][0],
+               reuse_s=st["reuse"][0])
+    return out
+
+
+def phase_server(ks: dict, card: str) -> tuple[dict, dict, dict]:
+    """The port's server on the card: three ``AtomixServer(executor=
+    "tpu")`` with 10,000-group engines, two clients, 1,000 device
+    resources and their traffic, checked against a plain model
+    (:func:`server_traffic`); each server-engine round launches each fused
+    kernel once, and one server step's arguments hold them against their
+    plain versions."""
+    from copycat_tpu_torch.manager.device_executor import DeviceEngineConfig
+    from copycat_tpu_torch.ops import apply as ap
+    from copycat_tpu_torch.ops import consensus as cons
+    from copycat_tpu_torch.ops import kernels
+
+    config = DeviceEngineConfig(**SERVER_ENGINE)
+    t_phase = time.perf_counter()
+
+    async def run() -> dict:
+        cluster = ServerCluster(config)
+        t0 = time.perf_counter()
+        await cluster.open()
+        open_s = time.perf_counter() - t0
+        try:
+            zero_counts(ks)
+            r0 = cluster.rounds()
+            out = await server_traffic(cluster, ap, cons, card)
+            rounds = [b - a for a, b in zip(r0, cluster.rounds())]
+            launched = counts(ks)
+            if launched["kth_largest"] or any(
+                    launched[n] != sum(rounds) for n in STEP_FNS):
+                raise AssertionError(
+                    f"server: launches {launched} in {sum(rounds)} engine "
+                    f"rounds ({rounds})")
+            errs = step_fns(kernels, out["seen"], "a server engine's step")[1]
+            return dict(out, rounds=rounds, launches=launched, errs=errs,
+                        open_s=open_s)
+        finally:
+            await cluster.close()
+
+    res = asyncio.run(run())
+    res.pop("seen")
+    wall = time.perf_counter() - t_phase
+    say(f"server: 3 AtomixServer(executor=\"tpu\") x G={config.capacity} "
+        f"P=3 L=64 S=4 on {card}; {sum(SERVER_MIX.values())} device "
+        f"resources {SERVER_MIX}, created in {res['create_s']:.3f} s; {res['answered']} ops "
+        f"answered in {res['traffic_s']:.3f} s outside the profiler window "
+        f"({res['answered'] / res['traffic_s']:.1f} client-visible ops/s); "
+        f"engine rounds per server {res['rounds']}; launches "
+        f"{res['launches']}; every answer and event equal to the model, the "
+        f"three replicas equal; {SERVER_REUSE} deletes and creates reusing "
+        f"the freed groups clean in {res['reuse_s']:.3f} s; server 0's manager "
+        f"snapshot ({res['blob_mb']:.3f} MiB engine blob) restored into a "
+        f"fresh server in {res['restore_s']:.3f} s with equal reads; the "
+        f"fused kernels equal their plain versions on a server step; "
+        f"servers opened in {res['open_s']:.3f} s, phase {wall:.1f} s")
+    say("server: (wall s, engine rounds of the three servers) by stage: "
+        + json.dumps(res["stages"]) + "; add_and_get waves (s): "
+        + json.dumps(res["wave_s"]))
+    per_wave = 2 * SERVER_MIX["long"]
+    say(f"server: add_and_get on {SERVER_UNSET} never-set longs (the CAS "
+        f"host path) {2 * SERVER_UNSET / res['unset_wave_s']:.1f} ops/s "
+        f"({2 * SERVER_UNSET} in {res['unset_wave_s']:.3f} s), on set longs "
+        f"{per_wave / float(np.median(res['wave_s'])):.1f} ops/s (median of "
+        f"{len(res['wave_s'])} waves of {per_wave})")
+    return res["launches"], res["errs"], res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card", file=sys.stderr)
@@ -1673,6 +2140,13 @@ def main() -> int:
     from copycat_tpu_torch.ops import kernels
 
     t_start = time.perf_counter()
+    t_lap = [t_start]
+
+    def lap(name: str) -> None:
+        now = time.perf_counter()
+        say(f"phase {name}: {now - t_lap[0]:.1f}s (at {now - t_start:.1f}s)")
+        t_lap[0] = now
+
     dev = torch.device("cuda")
     card = card_info()
     ks = bench.KERNELS
@@ -1680,7 +2154,9 @@ def main() -> int:
     say(f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)}")
     say(f"build: kernel libraries built in {phase_build(kernels):.1f}s")
+    lap("build")
     errs = phase_kernel(kernels, cases, dev)
+    lap("kernel")
     S = 16
     counter_ops = np.array([ap.OP_LONG_ADD] * 6 + [
         ap.OP_VALUE_SET, ap.OP_VALUE_GET, ap.OP_VALUE_CAS, ap.OP_MAP_PUT],
@@ -1688,20 +2164,24 @@ def main() -> int:
     phase_path(cons, convert, ks, dev, "path", 3, 64, 50, cons.Config(
         append_window=S, applies_per_round=S,
         resource=ap.ResourceConfig.counters_only()), counter_ops)
+    lap("counter path")
     all_ops = np.array(sorted({v for k, v in vars(ap).items()
                                if k.startswith("OP_")}), np.int32)
     mixed_cfg = cons.Config(append_window=S, applies_per_round=S,
                             pool_budgets=(4, 6, 4, 6, 4, 4, 4, 4))
     phase_path(cons, convert, ks, dev, "mixed path", 5, 32, 40, mixed_cfg,
                all_ops)
+    lap("mixed path")
     membership = phase_path(
         cons, convert, ks, dev, "membership path", 5, 32, 40,
         mixed_cfg._replace(resource=bench.RESOURCE_CONFIGS["mixed"],
                            dynamic_membership=True),
         np.array([ap.OP_LONG_ADD], np.int32), G=10_000,
         members=np.arange(5) < 3, churn=membership_churn(ap, 5))
+    lap("membership path")
     launches = {"counter_serve": phase_serve(RaftGroups, cons, ap, ks),
                 "pool_serve": phase_pool_serve(RaftGroups, ap, ks)}
+    lap("counter and pool serves")
     served = phase_membership_serve(RaftGroups, bench, cons, ap, ks)
     launches["membership_serve"] = served["launches"]
     per_round = {name: n / served["rounds"]
@@ -1718,26 +2198,42 @@ def main() -> int:
     static.wait_for_leaders()
     profile_serve(static, ap, card, "static-membership serve")
     del static
+    lap("membership serve")
     phase_engine_extras(RaftGroups, bench, convert, ap)
+    lap("engine extras")
     _, timing = phase_bench(bench, cons, kernels, dev, card)
     phase_profile(bench, dev, card)
+    lap("counter bench")
     mixed, mixed_timing = phase_mixed_bench(bench, cons, ap, kernels, dev,
                                             card)
     launches["mixed_bench"] = mixed.pop("launches")
     phase_profile(bench, dev, card, **MIXED)
+    lap("mixed bench")
     phase_short_benches(bench, card)
     phase_profile(bench, dev, card, scenario="map")
+    lap("short benches")
     phase_query_lane(bench, card, QUERY_ROUNDS, QUERY_REPEATS)
+    lap("query lane")
     phase_elections(bench, card, ELECTION_ROUNDS, ELECTION_REPEATS)
+    lap("elections")
     deep = phase_deep_path(cons, convert, ks, dev)
+    lap("deep path")
     host = phase_host_bench(bench, ap, card)
+    lap("host bench")
     phase_host_read_session(bench, card)
+    lap("host_read and session")
     wide_rows = phase_wide_kernels(RaftGroups, kernels, cases, ap, ks, dev,
                                    card)
+    lap("wide kernels")
     phase_checkpoint(RaftGroups, bench, ap, card)
+    lap("checkpoint")
     launches["facades"], facade_errs = phase_facades(RaftGroups, ap, ks,
                                                      card)
+    lap("facades")
     verdicts = phase_verdict(ks, card)
+    lap("verdicts")
+    launches["server"], server_errs, _ = phase_server(ks, card)
+    lap("server")
     say(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f}s")
     deep_errs = verdicts["deep verdict"]["max_abs_err"]
@@ -1760,10 +2256,12 @@ def main() -> int:
             host["deep"]["launches_per_round"][name],
         "launches_facades": launches["facades"][name],
         "launches_deep_verdict": verdicts["deep verdict"]["launches"][name],
+        "launches_server": launches["server"][name],
         "max_abs_err": max(errs[name], facade_errs.get(name, 0),
-                           deep_errs.get(name, 0)),
+                           deep_errs.get(name, 0), server_errs.get(name, 0)),
         "max_abs_err_facades": facade_errs.get(name),
         "max_abs_err_deep_verdict": deep_errs.get(name),
+        "max_abs_err_server": server_errs.get(name),
         **timing[name],
         "mixed_shape": mixed_timing.get(name),
     } for name, src in sources.items()]

@@ -32,6 +32,7 @@ on in engines whose ``Config`` left it off.
 
 from __future__ import annotations
 
+import json
 import time
 from collections import deque
 from typing import Any
@@ -100,16 +101,38 @@ class FlightRecorder:
     def __init__(self, capacity: int = 256) -> None:
         self._ring: deque = deque(maxlen=max(1, capacity))
         self._seq = 0
+        #: optional durable spill (``utils/health.py::BlackBox``): when
+        #: the server's health plane wires it, every ring event is also
+        #: appended to the crash-surviving on-disk black-box. ``None``
+        #: keeps the ring memory-only.
+        self.spill = None
 
     def record(self, kind: str, round_no: int, **fields) -> dict:
         self._seq += 1
         event = {"seq": self._seq, "t": round(time.time(), 3),
                  "round": int(round_no), "kind": kind, **fields}
         self._ring.append(event)
+        if self.spill is not None:
+            try:
+                self.spill(event)
+            except Exception:  # noqa: BLE001 - spill must never wound
+                pass
         return event
 
     def events(self) -> list[dict]:
         return list(self._ring)
+
+    def render_json(self) -> str:
+        return json.dumps({"events": self.events()})
+
+    def render_text(self) -> str:
+        lines = []
+        for ev in self._ring:
+            extra = " ".join(f"{k}={v}" for k, v in ev.items()
+                             if k not in ("seq", "t", "round", "kind"))
+            lines.append(f"#{ev['seq']:<5} r{ev['round']:<8} "
+                         f"{ev['kind']:<10} {extra}")
+        return "\n".join(lines) + ("\n" if lines else "(no events)\n")
 
 
 class InvariantMonitor:

@@ -69,11 +69,19 @@ def _drive(config: Config, seed: int) -> RaftGroups:
     return rg
 
 
+SEQUENTIAL = Config(applies_per_round=8)
+
+
+@pytest.fixture(scope="module")
+def rg_seq():
+    """The sequential drive both budget cases compare against: one
+    deterministic run, shared (the cases only read it)."""
+    return _drive(SEQUENTIAL, seed=99)
+
+
 @pytest.mark.parametrize("budgets", [(2,) * 8, (1, 2, 1, 3, 1, 2, 1, 1)])
-def test_partitioned_apply_matches_sequential(budgets):
-    sequential = Config(applies_per_round=8)
-    partitioned = sequential._replace(pool_budgets=budgets)
-    rg_seq = _drive(sequential, seed=99)
+def test_partitioned_apply_matches_sequential(budgets, rg_seq):
+    partitioned = SEQUENTIAL._replace(pool_budgets=budgets)
     rg_par = _drive(partitioned, seed=99)
     assert rg_seq.results == rg_par.results
     # every resource leaf, TTL deadlines and wait/listener rings included

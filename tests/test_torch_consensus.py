@@ -96,25 +96,71 @@ def _assert_same(ref, port, what, r):
         np.testing.assert_array_equal(g, w, err_msg=f"{what}.{name} round {r}")
 
 
+def _full(sub, S):
+    """Compact submit leaves as the full ``[G, S]`` arrays the reference's
+    ``step`` normalizes them to first (scalars broadcast, a ``[G, 1]`` tag
+    column consecutive per slot; full arrays pass through untouched): the
+    same step, and one compiled signature of it per config where the
+    compact rounds would compile a second."""
+    out = {k: np.broadcast_to(np.asarray(v, np.int32), (G, S))
+           for k, v in sub.items() if k in ("opcode", "a", "b", "c")}
+    tag = np.asarray(sub["tag"], np.int32)
+    out["tag"] = (tag + np.arange(S, dtype=np.int32)[None, :]
+                  if tag.shape == (G, 1) and S != 1
+                  else np.broadcast_to(tag, (G, S)))
+    out["valid"] = sub["valid"]
+    return out
+
+
+def _reference_run(P, S, jcfg, ops):
+    """The reference's side of :func:`_step_side_by_side`: per round the
+    submits (as the port gets them), delivery mask and timer draws, the
+    reference's outputs and state, and its state after a snapshot install
+    (or ``None``)."""
+    key = jax.random.PRNGKey(P * 100 + S)
+    key, init_key = jax.random.split(key)
+    jstate = jcons.init_state(G, P, L, init_key, jcfg)
+    jstep = jax.jit(partial(jcons.step, config=jcfg))
+    jinstall = jax.jit(partial(jcons.install_snapshots, config=jcfg))
+    rng = np.random.default_rng(P * 10 + S)
+    run = [jstate]
+    for r in range(ROUNDS):
+        key, k = jax.random.split(key)
+        sub = _submits(rng, r, S, compact=(r % 5 == 4), ops=ops)
+        deliver = _deliver(rng, r, P)
+        jstate, jout = jstep(jstate, jcons.Submits(**_full(sub, S)),
+                             deliver, k)
+        installed = None
+        if np.asarray(jout.stale).any():
+            installed = jinstall(jstate, jout.stale, jout.leader)
+        run.append((sub, deliver, _jax_draws(k, jcfg, P), jout, jstate,
+                    installed))
+        if installed is not None:
+            jstate = installed
+    return run
+
+
+# The counters-only runs are kept for the file's life (a few MB): the
+# flow-control case steps the lease case's run (P=3, S=4) again.
+_COUNTER_RUNS = {}
+
+
 def _step_side_by_side(P, S, jcfg, ops=_OPS, flow_control=False):
     """Step both engines ROUNDS rounds from one state; returns the
     commands committed, the snapshot installs and the events drained."""
     tcfg = convert.config_to_torch(jcfg)._replace(
         ring_flow_control=flow_control)
-    key = jax.random.PRNGKey(P * 100 + S)
-    key, init_key = jax.random.split(key)
-    jstate = jcons.init_state(G, P, L, init_key, jcfg)
-    tstate = convert.state_to_torch(jstate, "cpu")
-    jstep = jax.jit(partial(jcons.step, config=jcfg))
-    jinstall = jax.jit(partial(jcons.install_snapshots, config=jcfg))
-    rng = np.random.default_rng(P * 10 + S)
+    if jcfg.resource == jap.ResourceConfig.counters_only():
+        k = (P, S, jcfg, ops.tobytes())
+        if k not in _COUNTER_RUNS:
+            _COUNTER_RUNS[k] = _reference_run(P, S, jcfg, ops)
+        run = _COUNTER_RUNS[k]
+    else:
+        run = _reference_run(P, S, jcfg, ops)
+    tstate = convert.state_to_torch(run[0], "cpu")
     installs = committed = events = 0
-    for r in range(ROUNDS):
-        key, k = jax.random.split(key)
-        sub = _submits(rng, r, S, compact=(r % 5 == 4), ops=ops)
-        deliver = _deliver(rng, r, P)
-        jstate, jout = jstep(jstate, jcons.Submits(**sub), deliver, k)
-        fresh, cand = _jax_draws(k, jcfg, P)
+    for r, (sub, deliver, (fresh, cand), jout, jstate, installed) in \
+            enumerate(run[1:]):
         tstate, tout = tcons.step(
             tstate, tcons.Submits(**sub), torch.from_numpy(deliver),
             fresh, cand, tcfg)
@@ -122,11 +168,10 @@ def _step_side_by_side(P, S, jcfg, ops=_OPS, flow_control=False):
         _assert_same(jstate, tstate, "state", r)
         committed += int(np.asarray(jout.out_valid).sum())
         events += int(np.asarray(jout.ev_valid).sum())
-        if np.asarray(jout.stale).any():
-            jstate = jinstall(jstate, jout.stale, jout.leader)
+        if installed is not None:
             tstate = tcons.install_snapshots(tstate, tout.stale, tout.leader,
                                              tcfg)
-            _assert_same(jstate, tstate, "installed", r)
+            _assert_same(installed, tstate, "installed", r)
             installs += 1
     assert committed > 0
     assert installs > 0, "the schedule never left a lane stale"

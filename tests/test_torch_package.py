@@ -22,6 +22,7 @@ torch = pytest.importorskip("torch")
 from copycat_tpu_torch import bench, device  # noqa: E402
 from copycat_tpu_torch.models import RaftGroups  # noqa: E402
 from copycat_tpu_torch.ops import kernels  # noqa: E402
+from copycat_tpu_torch.utils import knobs  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "copycat_tpu_torch").rglob("*.py")) + [
@@ -51,6 +52,19 @@ def test_scan_sees_forbidden_imports(tmp_path):
     f.write_text("import jax.numpy as jnp\nfrom copycat_tpu.ops import apply\n"
                  "from . import sibling\n")
     assert _imported_roots(f) & set(FORBIDDEN) == {"jax", "copycat_tpu"}
+
+
+KNOBS_FILE = ROOT / "copycat_tpu_torch" / "utils" / "knobs.py"
+_READER_TEXT = "\n".join(
+    p.read_text() for p in (ROOT / "copycat_tpu_torch").rglob("*.py")
+    if p != KNOBS_FILE)
+
+
+@pytest.mark.parametrize("name", sorted(knobs.REGISTRY))
+def test_every_declared_knob_has_a_reader(name):
+    """The registry declares only knobs some port module reads: a knob
+    named nowhere outside ``utils/knobs.py`` is one nothing needs."""
+    assert f'"{name}"' in _READER_TEXT, f"{name} is declared but never read"
 
 
 def _no_cuda(monkeypatch):
@@ -155,6 +169,27 @@ def test_new_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
         bench.run_map_read("atomic", groups=4, rounds=1, repeats=1)
     rg = RaftGroups(4, 5, config=dyn, voters=3, device="cpu")
     assert rg.sessions.open_session().id >= 1 << 30
+    # the server's device engine, built at server open (prewarm)
+    from copycat_tpu_torch.io.local import LocalServerRegistry, LocalTransport
+    from copycat_tpu_torch.io.transport import Address
+    from copycat_tpu_torch.manager.atomix import AtomixServer
+    from copycat_tpu_torch.manager.device_executor import (
+        DeviceEngine, DeviceEngineConfig)
+    addr = Address("local", 1)
+    for config in (DeviceEngineConfig(capacity=4),
+                   DeviceEngineConfig(capacity=4, device="cpu")):
+        server = AtomixServer(addr, [addr],
+                              LocalTransport(LocalServerRegistry()),
+                              executor="tpu", engine_config=config)
+        if config.device is None:
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                server.server.state_machine.prewarm()
+        else:
+            server.server.state_machine.prewarm()
+            engine = server.server.state_machine.device_engine
+            assert engine._groups.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        DeviceEngine()._ensure()
 
 
 @pytest.mark.parametrize("mode", ["deep", "deepscan", "bulk", "queued"])
