@@ -95,14 +95,16 @@ Phases, each of which raises (and so exits non-zero) on failure:
 17. ``host_read`` — 128 reads per group at both read levels, every read
     7; ``session`` — 16 sessions, 128 ops per group a flush, group 0's
     counter exactly once;
-18. wide kernels — the runtime-P instantiations: ``RaftGroups(10_000,
-    9)`` and ``(10_000, 16)``, and ``(10_000, 9)`` with 5 voters under
-    dynamic membership adding lane 5, serving a counter op per group
-    (S=4); ``admit_submits`` and ``ack_commit`` against their plain
-    versions on the arguments each serve's step gave them, and timed
-    there beside their plain versions and bounds; the same on drawn
-    inputs at G = 10,000 (S = 16) and 1,001 (S = 5), and ``kth_largest``
-    at P = 9 and 16 on drawn rows;
+18. wide kernels — the fused kernels' warp-tile path (P > 8):
+    ``RaftGroups(10_000, 9)`` and ``(10_000, 16)``, and ``(10_000, 9)``
+    with 5 voters under dynamic membership adding lane 5, serving a
+    counter op per group (S=4); ``admit_submits`` and ``ack_commit``
+    against their plain versions on the arguments each serve's step gave
+    them, and timed there beside their plain versions and bounds; the
+    same on drawn inputs at G = 10,000 (S = 16) and 1,001 (S = 5); at P =
+    16 (masked), 32 (static and masked) and 33 (static) on drawn inputs
+    alone, timed on those at G = 10,000; and ``kth_largest`` at P = 9,
+    16, 32 and 33 on drawn rows;
 19. checkpoint — the mixed cell's engine (G=100,000 × P=5, L=32, six
     pools, budgets, flow control) after 20 rounds under the nemesis,
     saved with ``save_bytes`` and loaded onto the card: every leaf equal,
@@ -173,6 +175,12 @@ SHORT_ROUNDS, SHORT_REPEATS = 20, 2
 # its limit once the server phase was added (PERF.md, PR 7 runs 6-7)
 QUERY_ROUNDS, QUERY_REPEATS = 50, 3
 ELECTION_ROUNDS, ELECTION_REPEATS = 200, 5
+# The plain versions take 0.1-3 ms a call, a hundred times a kernel's
+# time or more: they are timed over fewer calls (100 in a graph, 50
+# eager), so that the script, with the wide phase's seven shapes, stays
+# inside 60% of its limit (PERF.md, Findings).
+PLAIN_GRAPH = dict(calls=20, replays=5)
+PLAIN_CALLS = dict(iters=50, warmup=5)
 
 
 def say(msg: str) -> None:
@@ -974,9 +982,11 @@ def fused_fns(bench, cons, kernels, dev, **cell) -> dict:
 def time_fns(fns: dict, per_round: dict, where: str, card: str) -> dict:
     timing = {}
     for name, (kern, plain, library, bound) in fns.items():
-        dev_ms = {"ms": graph_ms(kern), "plain_ms": graph_ms(plain),
+        dev_ms = {"ms": graph_ms(kern),
+                  "plain_ms": graph_ms(plain, **PLAIN_GRAPH),
                   "library_ms": graph_ms(library) if library else None}
-        call_ms = {"call_ms": time_ms(kern), "plain_call_ms": time_ms(plain),
+        call_ms = {"call_ms": time_ms(kern),
+                   "plain_call_ms": time_ms(plain, **PLAIN_CALLS),
                    "library_call_ms": time_ms(library) if library else None}
         timing[name] = dict(**dev_ms, **bound, **call_ms,
                             launches_per_bench_round=per_round[name])
@@ -1442,26 +1452,44 @@ def wide_serve(RaftGroups, ap, ks: dict, P: int, voters=None,
     return launched, seen
 
 
+# (P, member-masked, served): the runtime-P shapes of the wide phase. A
+# served shape runs RaftGroups(10_000, P) on the card and is timed on its
+# step's inputs; the others (the 16- and 32-lane tiles' edges, and more
+# than 32 lanes a thread) are checked and timed on drawn inputs alone.
+WIDE_SHAPES = ((9, False, True), (16, False, True), (9, True, True),
+               (16, True, False), (32, False, False), (32, True, False),
+               (33, False, False))
+
+
 def phase_wide_kernels(RaftGroups, kernels, cases, ap, ks: dict, dev,
                        card: str, G: int = 10_000) -> list[dict]:
-    """The runtime-P instantiations: ``RaftGroups`` at 9 and 16 peers, and
-    at 9 with dynamic membership, serving on the card; each fused kernel
-    equal to its plain version bit for bit on the arguments the serve's
-    step gave it (and timed there), and on drawn inputs at S = 16 and at
-    G = 1,001 (a partial last block); ``kth_largest`` (off the path) on
-    drawn rows."""
+    """The runtime-P (P > 8, warp-tile) kernels: ``RaftGroups`` at 9 and
+    16 peers, and at 9 with dynamic membership, serving on the card; each
+    fused kernel equal to its plain version bit for bit on the arguments
+    the serve's step gave it (and timed there), and on drawn inputs at S =
+    16 and at G = 1,001 (a partial last tile and block); at 16 (masked),
+    32 (static and masked) and 33 peers on the drawn inputs alone, timed
+    on those at G = 10,000; ``kth_largest`` (off the path) on drawn
+    rows."""
     rng = np.random.default_rng(9)
     L = 64
     rows = []
-    for P, masked in ((9, False), (16, False), (9, True)):
-        launched, seen = wide_serve(RaftGroups, ap, ks, P,
-                                    voters=5 if masked else None, G=G)
-        fns, errs = step_fns(kernels, seen, f"the P={P} serve's step")
-        if (seen["ack_commit"][1]["view"] is not None) != masked:
-            raise AssertionError(f"P={P}: the serve called the wrong form")
-        S = seen["admit_submits"][0][3].shape[1]
+    for P, masked, served in WIDE_SHAPES:
         drawn = (wide_fns(kernels, cases, dev, rng, G, P, 16, L, masked),
                  wide_fns(kernels, cases, dev, rng, 1_001, P, 5, L, masked))
+        if served:
+            launched, seen = wide_serve(RaftGroups, ap, ks, P,
+                                        voters=5 if masked else None, G=G)
+            fns, errs = step_fns(kernels, seen, f"the P={P} serve's step")
+            if (seen["ack_commit"][1]["view"] is not None) != masked:
+                raise AssertionError(f"P={P}: the serve called the wrong "
+                                     "form")
+            S = seen["admit_submits"][0][3].shape[1]
+            inputs = "the serve's step"
+        else:           # no path runs this P: launches 0
+            launched = dict.fromkeys(ks, 0)
+            fns = {n: f for n, f in drawn[0].items() if n != "kth_largest"}
+            errs, S, inputs = {}, 16, "drawn inputs"
         for name in drawn[0]:
             for kern, plain, *_ in (d[name] for d in drawn):
                 what = f"{name} at P={P}" + (" (masked)" if masked else "")
@@ -1475,9 +1503,9 @@ def phase_wide_kernels(RaftGroups, kernels, cases, ap, ks: dict, dev,
                 errs[name] = max(errs.get(name, 0), err)
         tag = f"_p{P}" + ("_masked" if masked else "")
         per_round = {n: 1.0 for n in (*fns, "kth_largest")}
-        timing = time_fns(fns, per_round, f"G={G} P={P} S={S} L={L} (the "
-                          "serve's step" + (", member-masked)" if masked
-                                            else ")"), card)
+        timing = time_fns(fns, per_round, f"G={G} P={P} S={S} L={L} ("
+                          + inputs + (", member-masked)" if masked
+                                      else ")"), card)
         if not masked:
             fns["kth_largest"] = drawn[0]["kth_largest"]
             timing.update(time_fns({"kth_largest": fns["kth_largest"]},
@@ -1493,11 +1521,13 @@ def phase_wide_kernels(RaftGroups, kernels, cases, ap, ks: dict, dev,
                 "replaces": "copycat_tpu/ops/pallas_kernels.py:69",
                 "launches": launched[name],
                 "max_abs_err": errs[name],
+                "timed_on": inputs,
                 **{k: v for k, v in timing[name].items()
                    if k != "launches_per_bench_round"}})
         say(f"wide kernels{tag}: {sorted(fns)} equal to the plain versions "
-            f"bit for bit on the serve's step (S={S}) and on drawn inputs "
-            f"at G={G} (S=16) and G=1001")
+            f"bit for bit" + (f" on the serve's step (S={S}) and" if served
+                              else "") + f" on drawn inputs at G={G} (S=16) "
+            "and G=1001")
     return rows
 
 

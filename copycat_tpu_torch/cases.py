@@ -119,8 +119,9 @@ def member_views(rng: np.random.Generator, lead: np.ndarray,
     led by ``lead`` (-1: lane 0 is read)."""
     G = lead.shape[0]
     full = (1 << P) - 1
-    views = rng.integers(1, full + 1, (G, P)).astype(np.int32)
-    ld = np.maximum(lead, 0)
+    # int64 while the words are built: lane 31's bit is the int32 sign bit
+    views = rng.integers(1, full + 1, (G, P))
+    ld = np.maximum(lead, 0).astype(np.int64)
     rows = np.arange(G)
     outside = rng.random(G) < 0.2
     word = views[rows, ld]
@@ -130,4 +131,4 @@ def member_views(rng: np.random.Generator, lead: np.ndarray,
     word[1] = full                                          # every lane
     word[2] = full & ~(1 << ld[2]) if P > 1 else full       # not the leader
     views[rows, ld] = word
-    return views
+    return views.astype(np.int32)

@@ -19,34 +19,53 @@
 // G*(4P + 4 + 1 + S + 4) = 370,000 bytes and writes G*(S + 4S + 8S + 4) =
 // 2,120,000 (0.74 us at 3.35 TB/s); ack_commit reads G*(6P + 24P + 17) =
 // 1,070,000 bytes plus one 4-byte term per group whose commit candidate
-// lies in the ring, and writes G*(8P + 10) = 340,000 (about 0.43 us). A few
-// dozen integer operations per group are far below the card's rate. Each
-// is under a microsecond of work, about what one launch costs, and the
-// eager torch code it replaces was a few dozen launches of its own. So the
-// design keeps everything between the inputs and the outputs out of
-// device memory:
+// lies in the ring, and writes G*(8P + 10) = 340,000 (about 0.43 us). At
+// the wide shapes the [G,P] lanes take over: at G=10,000, P=16, S=4
+// admit_submits moves 1.33 MB (0.40 us) and ack_commit 6.35 MB (1.9 us).
+// The rank-select is 2*P^2 integer compares a group, 5.1 M at P=16, far
+// below the card's rate (0.08 us at 67 T/s). Each call is a few
+// microseconds of work at most, about what one launch costs, and the eager
+// torch code it replaces was a few dozen launches of its own. So the design
+// keeps everything between the inputs and the outputs out of device
+// memory:
 //
-// - one thread owns one group, so a group needs no cross-thread
-//   reduction: the P lanes and the S submit slots are a loop;
-// - for P <= 8 the group's P lanes sit in registers (one instantiation for
+// - for P <= 8 one thread owns one group, so a group needs no cross-thread
+//   reduction: the group's P lanes sit in registers (one instantiation for
 //   each P, so the lane loops unroll), and so do the tally, its inputs and
 //   its consumers: the rank-select of quorum.cuh runs on registers and its
-//   result feeds the admission or commit test directly. Wider groups
-//   (P > 8) take one more instantiation, P = 0, with P an argument: the
-//   same per-lane code in a loop, and the same tie-broken rank-select
-//   (quorum::kth_select_n) over the row where it lies — the applied row in
-//   device memory, or the matchIndex row the thread has just written out
-//   — so each P gives the plain version's values bit for bit;
-// - adjacent threads read adjacent [P]-rows, so a warp uses every line of
-//   the [G,P] arrays it loads in full, and each thread issues all its
-//   loads before its first store;
-// - admit_submits's [G,S] rows (valid in; accepted, assigned and the
-//   int64 slot out, 2.3 of its 2.5 MB) are staged through shared memory:
-//   a block of 128 groups and 512 threads reads and writes them as
-//   contiguous segments, consecutive threads on consecutive elements,
-//   rather than one thread walking a row 16 elements wide, which touches
-//   a separate line for every thread of a warp at every step (13 us a
-//   call at the bench shape, against 3.7 us staged, on an H100 at 700 W);
+//   result feeds the admission or commit test directly. Adjacent threads
+//   read adjacent [P]-rows, so a warp uses every line of the [G,P] arrays
+//   it loads in full, and each thread issues all its loads before its
+//   first store;
+// - for P > 8 a tile of W threads owns one group (the *_tile kernels): W =
+//   16 up to 16 peers, two groups a warp, and 32 above, thread `lane` of
+//   the tile owning peer `lane` (past 32 peers, lane + 32, lane + 64, ...
+//   as well). Each thread loads its own elements of the [G,P] arrays, so a
+//   tile's loads are one contiguous row and a warp's are coalesced; the
+//   group's scalars (lead, the leader's view word, active, the leader's
+//   term, last and commit index, accept_ok) are one address every thread
+//   of the tile reads, a broadcast. The reductions over the group's lanes
+//   are warp instructions: the stale test a __reduce_or_sync, the lease's
+//   ack count a __reduce_add_sync, the highest ack term a
+//   __reduce_max_sync, and the rank-select quorum::tile_kth_select, where
+//   each lane counts its own value's rank with shuffles (O(P) a lane) and
+//   a ballot names the lane that holds the result. Nothing the select
+//   reads passes through memory: ack_commit writes matchIndex and
+//   nextIndex once and never reads them back. Past 32 peers a thread holds
+//   ceil(P/32) lanes, and the select computes each again from the inputs
+//   (the applied row; an ack's matchIndex from its six inputs) rather than
+//   from anything the launch wrote. Phase 1's S submit slots are a ballot
+//   prefix over the tile, W slots a step, thread `lane` owning slots lane,
+//   lane + W, ...: a tile reads and writes its [S] rows as contiguous
+//   segments, so the [G,S] arrays need no staging;
+// - for P <= 8 admit_submits's [G,S] rows (valid in; accepted, assigned
+//   and the int64 slot out, 2.3 of its 2.5 MB at the bench shape) are
+//   staged through shared memory: all of a block's threads read and write its
+//   groups' rows as contiguous segments, consecutive threads on
+//   consecutive elements, rather than one thread walking a row 16 elements
+//   wide, which touches a separate line for every thread of a warp at
+//   every step (13 us a call at the bench shape, against 3.7 us staged, on
+//   an H100 at 700 W);
 // - bool tensors are one byte of 0/1 and are read and written as uint8_t;
 // - every `%` of the plain code is quorum::floormod.
 //
@@ -61,7 +80,8 @@
 // ack_commit only member lanes count towards the lease. Where it is null the
 // static instantiation runs, the same code as before: `Masked` is a template
 // flag, so the static path carries no test of it. The view adds one 4-byte
-// read per group.
+// read per group. A view names at most 32 lanes, so a masked tile holds one
+// lane a thread.
 //
 // `lead` comes in unclamped (-1 for a leaderless group). The gather of the
 // leader's applied_index reads lane max(lead, 0), as the plain code's
@@ -81,7 +101,7 @@
 
 namespace {
 
-constexpr int kStageThreads = 4;   // admit_submits: threads per group
+constexpr int kStageThreads = 4;   // admit_submits, P <= 8: threads a group
 
 // ---- phase 1 --------------------------------------------------------------
 
@@ -92,8 +112,8 @@ constexpr int kStageThreads = 4;   // admit_submits: threads per group
 // shared memory, consecutive threads on consecutive elements, so every warp
 // access to device memory is coalesced; the owning thread walks its group's
 // S slots in shared memory.
-// P is the lane count of an unrolled instantiation, or 0 for the one that
-// takes it at run time as `np` (an unrolled one passes np == P).
+// P is the lane count of an unrolled instantiation (P <= 8), and np == P;
+// wider groups take admit_submits_tile_kernel.
 template <int P, bool Masked>
 __global__ void admit_submits_kernel(
     const int32_t* __restrict__ applied, const int32_t* __restrict__ view,
@@ -156,18 +176,6 @@ __global__ void admit_submits_kernel(
       } else {
         floor_q = quorum::kth_select<P>(v, quorum);
       }
-    } else {
-      const int32_t* row = applied + static_cast<size_t>(g) * np;
-      l_applied = row[ld < np ? ld : 0];
-      if constexpr (Masked)
-        floor_q = quorum::kth_select_n(
-            [row, members](int p) {
-              return (members >> p) & 1u ? row[p] : INT32_MIN;
-            },
-            np, quorum::of_members(members));
-      else
-        floor_q = quorum::kth_select_n([row](int p) { return row[p]; }, np,
-                                       quorum);
     }
     const int32_t allowed = min(l_applied, floor_q) + L;
     int32_t pos = last;
@@ -243,7 +251,8 @@ __device__ __forceinline__ LaneAck lane_ack(const AckIn& in, size_t i) {
   return a;
 }
 
-// P as in admit_submits_kernel: unrolled, or 0 with the lane count in np.
+// P as in admit_submits_kernel: unrolled (P <= 8); wider groups take
+// ack_commit_tile_kernel.
 template <int P, bool Masked>
 __global__ void ack_commit_kernel(const AckIn in, const AckOut out, int G,
                                   int np, int quorum, int L) {
@@ -287,25 +296,6 @@ __global__ void ack_commit_kernel(const AckIn in, const AckOut out, int G,
       out.l_next[i] = l_next[p];
     }
     cand = quorum::kth_select<P>(match_full, quorum);
-  } else {
-    const size_t row = static_cast<size_t>(g) * np;
-    for (int p = 0; p < np; ++p) {
-      const LaneAck a = lane_ack(in, row + p);
-      higher |= a.seen && a.term1 > l_term;
-      max_ack = max(max_ack, a.seen ? a.term1 : 0);
-      out.l_match[row + p] = a.match;
-      out.l_next[row + p] = a.next;
-      const bool member = !Masked || ((members >> p) & 1u);
-      acked += (a.success || p == ld) && member;
-    }
-    // the quorum-th over the matchIndex row this thread has just written
-    const int32_t* l_match = out.l_match + row;
-    cand = quorum::kth_select_n(
-        [=](int p) {
-          const bool member = !Masked || ((members >> p) & 1u);
-          return member ? (p == ld ? l_last : l_match[p]) : INT32_MIN;
-        },
-        np, quorum);
   }
   const bool stale = active && higher;
   const bool sound = active && !stale;
@@ -366,6 +356,210 @@ void ack(const AckIn& in, const AckOut& out, int G, int np, int quorum,
   else
     ack_commit_kernel<P, true><<<grid, block, 0, s>>>(in, out, G, np, quorum,
                                                       L);
+}
+
+// ---- P > 8: a warp tile per group -----------------------------------------
+
+// W threads own a group (W = 16 or 32, quorum.cuh's tiles), thread `lane`
+// of the tile peers lane + j*W, j < chunks: Chunks is 1 as a constant (P <=
+// W, the peer's value in a register), or 0 for ceil(P/32) at run time (P >
+// 32, W = 32, static membership only). A tile past the last group reads the
+// last group's inputs and stores nothing, so every warp stays converged.
+
+// Phase 1. Thread `lane` of the tile also owns submit slots lane, lane + W,
+// ...: a tile reads and writes its group's [S] rows as contiguous
+// segments, so a warp's accesses to the [G,S] arrays are coalesced without
+// staging them through shared memory (the wide serves' S = 4 is one step).
+// The slots are admitted W at a time: a ballot of the wanted slots gives
+// each its log position (the prefix count), a second ballot the accepted.
+template <int W, int Chunks, bool Masked>
+__global__ void admit_submits_tile_kernel(
+    const int32_t* __restrict__ applied, const int32_t* __restrict__ view,
+    const int32_t* __restrict__ lead,
+    const uint8_t* __restrict__ accept_ok, const uint8_t* __restrict__ valid,
+    const int32_t* __restrict__ l_last, uint8_t* __restrict__ accepted,
+    int32_t* __restrict__ assigned, int64_t* __restrict__ slot,
+    int32_t* __restrict__ l_last_out, int G, int np, int S, int quorum,
+    int L) {
+  static_assert(!Masked || Chunks == 1, "a view names at most 32 lanes");
+  const int lane = quorum::tile_lane<W>();
+  const int g = (blockIdx.x * blockDim.x + threadIdx.x) / W;
+  const bool owner = g < G;
+  const int gr = min(g, G - 1);
+  const int32_t* row = applied + static_cast<size_t>(gr) * np;
+  const size_t srow = static_cast<size_t>(gr) * S;
+
+  // Every load first, none waiting for another: with one lane a thread,
+  // the leader's applied index and view word come from the leader lane's
+  // thread by a shuffle rather than by a second, dependent load.
+  const bool in_row = lane < np;
+  const int32_t ld = max(lead[gr], 0);
+  const bool ok = owner && accept_ok[gr] != 0;
+  const int32_t last = l_last[gr];
+  const bool first = lane < S && valid[srow + lane] != 0;  // slots 0..W-1
+  int32_t mine = 0;         // with Chunks == 1, this lane's applied index
+  uint32_t word = 0;        // and view word
+  if constexpr (Chunks == 1) {
+    if (in_row) mine = row[lane];
+    if constexpr (Masked)
+      if (in_row) word = view[static_cast<size_t>(gr) * np + lane];
+  }
+  const int lane_ld = ld < np ? ld : 0;
+  const int32_t l_applied = Chunks == 1 ? __shfl_sync(~0u, mine, lane_ld, W)
+                                        : row[lane_ld];
+  int k = quorum;
+  if constexpr (Masked) {
+    const uint32_t members = __shfl_sync(~0u, word, ld, W);
+    k = quorum::of_members(members);
+    if (!((members >> lane) & 1u)) mine = INT32_MIN;
+  }
+  if (!in_row) mine = INT32_MIN;
+
+  // Backpressure: the ring never overwrites an entry the leader or a
+  // quorum-th replica still has to apply. Past 32 peers each of this
+  // thread's lanes is read again from the applied row.
+  const int chunks = Chunks > 0 ? Chunks : (np + W - 1) / W;
+  const int32_t floor_q = quorum::tile_kth_select<W>(
+      [&](int j) {
+        const int p = lane + j * W;
+        return Chunks == 1 ? mine : p < np ? row[p] : INT32_MIN;
+      },
+      chunks, np, k);
+  const int32_t allowed = min(l_applied, floor_q) + L;
+  const uint32_t below = (1u << lane) - 1;
+  int32_t pos = last;
+  int32_t n_acc = 0;
+  for (int s0 = 0; s0 < S; s0 += W) {
+    const int s = s0 + lane;
+    const bool want =
+        ok && s < S && (s0 == 0 ? first : valid[srow + s] != 0);
+    const uint32_t wants = quorum::tile_ballot<W>(want);
+    const int32_t at_pos = pos + __popc(wants & below) + 1;
+    const bool acc = want && at_pos <= allowed;
+    if (owner && s < S) {
+      accepted[srow + s] = acc;
+      assigned[srow + s] = acc ? at_pos : 0;
+      slot[srow + s] = acc ? quorum::floormod(at_pos - 1, L) : L;
+    }
+    pos += __popc(wants);
+    n_acc += __popc(quorum::tile_ballot<W>(acc));
+  }
+  if (owner && lane == 0) l_last_out[g] = last + n_acc;
+}
+
+// Phase 3. Each thread takes its lanes' acks in registers and writes their
+// matchIndex and nextIndex once; the tile reduces the stale test, the ack
+// count and the highest ack term with warp reductions and selects the
+// commit candidate from its registers; the tile's first thread reads the
+// candidate's term and writes the [G] outputs.
+template <int W, int Chunks, bool Masked>
+__global__ void ack_commit_tile_kernel(const AckIn in, const AckOut out,
+                                       int G, int np, int quorum, int L) {
+  const int lane = quorum::tile_lane<W>();
+  const int g = (blockIdx.x * blockDim.x + threadIdx.x) / W;
+  const bool owner = g < G;
+  const int gr = min(g, G - 1);
+  const size_t row = static_cast<size_t>(gr) * np;
+  static_assert(!Masked || Chunks == 1, "a view names at most 32 lanes");
+  const int32_t ld = in.lead[gr];
+  uint32_t members = ~0u;
+  if constexpr (Masked) {
+    // each thread loads its own lane's word, the leader lane's thread
+    // hands its word to the tile: no load waits for `lead`
+    const uint32_t word =
+        lane < np ? static_cast<uint32_t>(in.view[row + lane]) : 0u;
+    members = __shfl_sync(~0u, word, max(ld, 0), W);
+    quorum = quorum::of_members(members);
+  }
+  const bool active = in.active[gr] != 0;
+  const int32_t l_term = in.l_term[gr];
+  const int32_t l_last = in.l_last[gr];
+  const int32_t l_commit = in.l_commit[gr];
+  const auto member = [&](int p) {
+    return !Masked || ((members >> p) & 1u);
+  };
+  bool higher = false;
+  int32_t max_ack = INT32_MIN;  // a max over the lanes, each term1 or 0
+  int acked = 0;
+  int32_t mine = INT32_MIN;     // this lane's matchIndex for the select
+  const int chunks = Chunks > 0 ? Chunks : (np + W - 1) / W;
+  for (int j = 0; j < chunks; ++j) {
+    const int p = lane + j * W;
+    if (p < np) {
+      const LaneAck a = lane_ack(in, row + p);
+      higher |= a.seen && a.term1 > l_term;
+      max_ack = max(max_ack, a.seen ? a.term1 : 0);
+      if (owner) {
+        out.l_match[row + p] = a.match;
+        out.l_next[row + p] = a.next;
+      }
+      acked += (a.success || p == ld) && member(p);
+      mine = member(p) ? (p == ld ? l_last : a.match) : INT32_MIN;
+    }
+  }
+  const uint32_t tile = quorum::tile_mask<W>();
+  higher = __reduce_or_sync(tile, higher) != 0;
+  acked = static_cast<int>(__reduce_add_sync(tile, acked));
+  max_ack = __reduce_max_sync(tile, max_ack);
+  // Past 32 peers, each of this lane's values again from the inputs.
+  const auto at = [&](int j) {
+    const int p = lane + j * W;
+    if (p >= np || !member(p)) return INT32_MIN;
+    return p == ld ? l_last : lane_ack(in, row + p).match;
+  };
+  const int32_t cand = quorum::tile_kth_select<W>(
+      [&](int j) { return Chunks == 1 ? mine : at(j); }, chunks, np,
+      quorum);
+  if (!owner || lane != 0) return;
+  const bool stale = active && higher;
+  const bool sound = active && !stale;
+  // The commit candidate and its term: one read of the leader's ring, masked
+  // by the live window (idx in [1, l_last] and within L of l_last).
+  const bool live = cand >= 1 && cand <= l_last && cand > l_last - L;
+  const int32_t cand_term =
+      live ? in.l_log_term[g * in.log_row_stride +
+                           quorum::floormod(cand - 1, L)]
+           : 0;
+  const bool advance = sound && cand > l_commit && cand_term == l_term;
+  out.leader_stale[g] = stale;
+  out.lease[g] = sound && acked >= quorum;
+  out.max_ack_term[g] = max_ack;
+  out.l_commit[g] = advance ? cand : l_commit;
+}
+
+// P > 8: the tile kernels, W = 16 up to 16 peers, 32 above; past 32 peers
+// (static membership only, as lanes_ok has it) a thread holds ceil(P/32).
+// A block holds kTileThreads / W groups.
+constexpr int kTileThreads = 256;
+
+template <int W, int Chunks>
+void admit_tile(const int32_t* applied, const int32_t* view,
+                const int32_t* lead, const uint8_t* accept_ok,
+                const uint8_t* valid, const int32_t* l_last,
+                uint8_t* accepted, int32_t* assigned, int64_t* slot,
+                int32_t* l_last_out, int G, int P, int S, int quorum, int L,
+                cudaStream_t s) {
+  const dim3 grid(blocks_for(G, kTileThreads / W)), block(kTileThreads);
+  if (view == nullptr)
+    admit_submits_tile_kernel<W, Chunks, false><<<grid, block, 0, s>>>(
+        applied, view, lead, accept_ok, valid, l_last, accepted, assigned,
+        slot, l_last_out, G, P, S, quorum, L);
+  else if constexpr (Chunks == 1)
+    admit_submits_tile_kernel<W, Chunks, true><<<grid, block, 0, s>>>(
+        applied, view, lead, accept_ok, valid, l_last, accepted, assigned,
+        slot, l_last_out, G, P, S, quorum, L);
+}
+
+template <int W, int Chunks>
+void ack_tile(const AckIn& in, const AckOut& out, int G, int P, int quorum,
+              int L, cudaStream_t s) {
+  const dim3 grid(blocks_for(G, kTileThreads / W)), block(kTileThreads);
+  if (in.view == nullptr)
+    ack_commit_tile_kernel<W, Chunks, false><<<grid, block, 0, s>>>(
+        in, out, G, P, quorum, L);
+  else if constexpr (Chunks == 1)
+    ack_commit_tile_kernel<W, Chunks, true><<<grid, block, 0, s>>>(
+        in, out, G, P, quorum, L);
 }
 
 // Whether (P, view) is a shape the kernels take: any P >= 1, and no more
@@ -438,8 +632,15 @@ extern "C" int admit_submits_launch(
                s);
       break;
     default:
-      admit<0>(ap, vw, le, ok, va, ll, ac, as, sl, lo, G, P, S, quorum, L,
-               s);
+      if (P <= 16)
+        admit_tile<16, 1>(ap, vw, le, ok, va, ll, ac, as, sl, lo, G, P, S,
+                          quorum, L, s);
+      else if (P <= 32)
+        admit_tile<32, 1>(ap, vw, le, ok, va, ll, ac, as, sl, lo, G, P, S,
+                          quorum, L, s);
+      else
+        admit_tile<32, 0>(ap, vw, le, ok, va, ll, ac, as, sl, lo, G, P, S,
+                          quorum, L, s);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -489,7 +690,10 @@ extern "C" int ack_commit_launch(
     case 6: ack<6>(in, out, G, P, quorum, L, s); break;
     case 7: ack<7>(in, out, G, P, quorum, L, s); break;
     case 8: ack<8>(in, out, G, P, quorum, L, s); break;
-    default: ack<0>(in, out, G, P, quorum, L, s);
+    default:
+      if (P <= 16) ack_tile<16, 1>(in, out, G, P, quorum, L, s);
+      else if (P <= 32) ack_tile<32, 1>(in, out, G, P, quorum, L, s);
+      else ack_tile<32, 0>(in, out, G, P, quorum, L, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

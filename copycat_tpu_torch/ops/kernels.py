@@ -28,9 +28,11 @@ Each of the last three dispatches on the device of its tensors: a CPU
 tensor takes the plain version (``*_plain``), a CUDA tensor launches the
 hand-written kernel (``*_cuda``) or raises; any other device raises. Each
 dispatcher's ``launches`` counts its kernel launches. The kernels take any
-P: P <= 8 runs an unrolled instantiation with the lanes in registers, a
-wider group one instantiation with P at run time; a member view takes at
-most 32 lanes, as many as its int32 bitmask names.
+P: P <= 8 runs an unrolled instantiation with the lanes in registers; in
+the fused kernels a wider group runs on a warp tile, a thread a peer, its
+tally by warp shuffles (``kth_largest`` alone keeps one runtime-P
+instantiation); a member view takes at most 32 lanes, as many as its
+int32 bitmask names.
 
 The kernel libraries are built with ``nvcc`` at first use, one per
 ``csrc/*.cu`` source (all started at once by :func:`load_libraries`), into

@@ -26,7 +26,7 @@ from copycat_tpu_torch.utils import knobs  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "copycat_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "ab_quorum_kernels.py"]
 FORBIDDEN = ("jax", "jaxlib", "copycat_tpu")
 
 

@@ -3,8 +3,10 @@ the JAX reference (``copycat_tpu/ops/consensus.py``).
 
 ``admit_submits_plain`` and ``ack_commit_plain`` are held, exactly (int and
 bool), against the reference's own phase expressions composed in jnp on
-the same numpy-seeded inputs (``copycat_tpu_torch/cases.py``), for P ∈ {3,
-5, 7} and the edge cases the inputs carry:
+the same numpy-seeded inputs (``copycat_tpu_torch/cases.py``), for P from
+3 to 33 (the unrolled kernels' P <= 8, and the edges of the warp tiles that
+take wider groups: 16 and 32 lanes a tile, more than 32 lanes a thread)
+and the edge cases the inputs carry:
 
 - phase 1, backpressure and admission: reference lines 642-647 (the
   static path's tally), 654 and 708-713 (the static-path admission, with
@@ -141,7 +143,7 @@ def _assert_equal(got, want: dict, int64=()):
         np.testing.assert_array_equal(g, w, err_msg=name)
 
 
-@pytest.mark.parametrize("P", [3, 5, 7, 9, 16])
+@pytest.mark.parametrize("P", [3, 5, 7, 9, 16, 32, 33])
 def test_admit_submits_matches_reference(ref, P):
     quorum = P // 2 + 1
     c = cases.admit_case(np.random.default_rng(P), G, P, S, L)
@@ -157,7 +159,7 @@ def test_admit_submits_matches_reference(ref, P):
     assert (accepted.sum(1) < offered.sum(1)).any()    # cut mid-window
 
 
-@pytest.mark.parametrize("P", [3, 5, 7, 9, 16])
+@pytest.mark.parametrize("P", [3, 5, 7, 9, 16, 32, 33])
 def test_ack_commit_matches_reference(ref, P):
     quorum = P // 2 + 1
     c = cases.ack_case(np.random.default_rng(10 + P), G, P, L)
@@ -179,7 +181,7 @@ def test_ack_commit_matches_reference(ref, P):
     assert (srt[:, 1:] == srt[:, :-1]).any(axis=1).mean() > 0.3
 
 
-@pytest.mark.parametrize("P", [3, 5, 7, 9])
+@pytest.mark.parametrize("P", [3, 5, 7, 9, 16, 32])
 def test_masked_phases_match_reference(ref, P):
     """Both phases with a member view: the masked tally with a per-group
     quorum, the lease over member acks."""
@@ -290,10 +292,17 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# (P, G) on the card: the unrolled kernels and P = 9, 16 at G = 10,001; the
+# warp tiles' edges (16 and 32 lanes a tile, more than 32 lanes a thread)
+# at G = 1,001, a partial last tile and block
+CUDA_SHAPES = ([(P, 10_001) for P in (3, 5, 7, 9, 16)]
+               + [(P, 1_001) for P in (9, 16, 17, 32, 33)])
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("P", [3, 5, 7, 9, 16])
-def test_admit_submits_cuda_matches_plain(cuda_device, P):
-    c = _torch(cases.admit_case(np.random.default_rng(P), 10_001, P, 16, 64))
+@pytest.mark.parametrize("P,groups", CUDA_SHAPES)
+def test_admit_submits_cuda_matches_plain(cuda_device, P, groups):
+    c = _torch(cases.admit_case(np.random.default_rng(P), groups, P, 16, 64))
     want = kernels.admit_submits_plain(**c, quorum=P // 2 + 1, L=64)
     before = kernels.admit_submits.launches
     got = kernels.admit_submits(**{n: t.to(cuda_device) for n, t in c.items()},
@@ -306,13 +315,13 @@ def test_admit_submits_cuda_matches_plain(cuda_device, P):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("P", [3, 5, 7, 9, 16])
-def test_ack_commit_cuda_matches_plain(cuda_device, P):
-    c = _torch(cases.ack_case(np.random.default_rng(P), 10_001, P, 64))
+@pytest.mark.parametrize("P,groups", CUDA_SHAPES)
+def test_ack_commit_cuda_matches_plain(cuda_device, P, groups):
+    c = _torch(cases.ack_case(np.random.default_rng(P), groups, P, 64))
     want = kernels.ack_commit_plain(**c, quorum=P // 2 + 1)
     on_card = {n: t.to(cuda_device) for n, t in c.items()}
     # the step's ring is a column slice of a wider tensor: rows L+1 apart
-    wide = torch.zeros((10_001, 65), dtype=torch.int32, device=cuda_device)
+    wide = torch.zeros((groups, 65), dtype=torch.int32, device=cuda_device)
     wide[:, :64] = on_card["l_log_term"]
     on_card["l_log_term"] = wide[:, :64]
     before = kernels.ack_commit.launches
@@ -324,16 +333,9 @@ def test_ack_commit_cuda_matches_plain(cuda_device, P):
         assert torch.equal(g, w), name
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("P", [3, 5, 7, 9, 16])
-def test_masked_kernels_cuda_match_plain(cuda_device, P):
-    """Both fused kernels with a member view, and the static path beside
-    them, equal their plain versions bit for bit."""
-    rng = np.random.default_rng(30 + P)
-    a = cases.admit_case(rng, 10_001, P, 16, 64)
-    a["view"] = cases.member_views(rng, a["lead"], P)
-    k = cases.ack_case(rng, 10_001, P, 64)
-    k["view"] = cases.member_views(rng, k["lead"], P)
+def _held_to_plain(cuda_device, a: dict, k: dict, P: int) -> None:
+    """Both fused kernels on the phases' inputs ``a`` and ``k`` equal their
+    plain versions bit for bit, one launch each."""
     for fn, plain, case, kw in (
             (kernels.admit_submits, kernels.admit_submits_plain, a,
              dict(quorum=P // 2 + 1, L=64)),
@@ -347,3 +349,39 @@ def test_masked_kernels_cuda_match_plain(cuda_device, P):
         for name, w in want._asdict().items():
             g = getattr(got, name).cpu()
             assert g.dtype == w.dtype and torch.equal(g, w), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,groups", [
+    (P, G_) for P, G_ in CUDA_SHAPES if P <= kernels.MAX_MEMBER_LANES])
+def test_masked_kernels_cuda_match_plain(cuda_device, P, groups):
+    """Both fused kernels with a member view equal their plain versions
+    bit for bit."""
+    rng = np.random.default_rng(30 + P)
+    a = cases.admit_case(rng, groups, P, 16, 64)
+    a["view"] = cases.member_views(rng, a["lead"], P)
+    k = cases.ack_case(rng, groups, P, 64)
+    k["view"] = cases.member_views(rng, k["lead"], P)
+    _held_to_plain(cuda_device, a, k, P)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+def test_wide_kernels_cuda_on_ties_and_int_min(cuda_device, masked):
+    """At P = 32, one full tile: rows whose lanes all tie, and rows
+    carrying INT32_MIN lanes, in both tallies (applied and matchIndex),
+    static and with a member view."""
+    P, groups = 32, 1_001
+    rng = np.random.default_rng(41)
+    a = cases.admit_case(rng, groups, P, 16, 64)
+    k = cases.ack_case(rng, groups, P, 64)
+    for case, lanes in ((a, "applied"), (k, "l_match")):
+        x = case[lanes]
+        tie = rng.random(groups) < 0.3
+        x[tie] = x[tie, :1]
+        low = (rng.random((groups, P)) < 0.2) & ~tie[:, None]
+        low[rng.random(groups) < 0.1] = True          # whole rows at INT32_MIN
+        x[low] = kernels.INT_MIN
+        if masked:
+            case["view"] = cases.member_views(rng, case["lead"], P)
+    _held_to_plain(cuda_device, a, k, P)
