@@ -146,9 +146,24 @@ Phases, each of which raises (and so exits non-zero) on failure:
     created on exactly the freed groups, reading 0; one launch of each
     fused kernel per server-engine round, and both against their plain
     versions on the arguments of a server step; a profiler window of the
-    server engines' rounds.
+    server engines' rounds;
+23. public_api — the bench's public-API scenarios, each through one port
+    ``AtomixServer(executor="tpu")`` and its clients: ``spi`` at its
+    defaults (1,000 ``DistributedAtomicLong``s, 5 bursts of one
+    ``add_and_get`` each), ``readmix`` (1,000 instances, ``atomic``, 3
+    bursts of one write and nine reads each) and ``apply`` at its defaults
+    (4 Raft groups on one engine, 24 sessions, 48 ``get_and_set`` each a
+    burst over 256 zipfian keys beside host-shadow sets, 5 bursts); every
+    counter reads its bursts, every read the write before it, and every
+    key's writes form one chain (each applied once); one launch of each
+    fused kernel per engine round and none of the tally; both fused
+    kernels against their plain versions on each scenario's last step;
+    ops/s (reads/s), p50/p99 ms, engine rounds and wall time printed; a
+    profiler window of every engine round of an spi run of two bursts.
 
-Each phase prints its wall time. The line before the last is
+The profile windows' summaries read the window's Chrome trace back
+through ``copycat_tpu_torch/utils/profiling.py``. Each phase prints its
+wall time. The line before the last is
 ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a card it exits non-zero and
 prints no result.
@@ -159,6 +174,7 @@ from __future__ import annotations
 import asyncio
 import contextlib
 import json
+import pathlib
 import sys
 import time
 from collections import deque
@@ -167,6 +183,8 @@ import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
+# the profile windows' Chrome traces, each deleted once it is summarised
+TRACE_DIR = pathlib.Path(__file__).resolve().parent / "_smoke_traces"
 SCALAR_OPS_PER_S = 67e12        # H100 SXM 32-bit rate outside the tensor cores
 MIXED = dict(scenario="mixed", groups=100_000, peers=5)
 MIXED_ROUNDS, MIXED_REPEATS = 200, 3    # the reference runs 200 x 5
@@ -1126,23 +1144,29 @@ def profile_rounds(run, rounds: int, what: str, card: str) -> dict:
 
 @contextlib.contextmanager
 def profiling(what: str, card: str):
-    """A ``torch.profiler`` window over the body, which stores the number
-    of rounds it ran under ``"rounds"`` in the dict this yields; on exit
-    the dict holds :func:`profile_summary` of the window. Only the CUDA
-    activity is traced: the summary reads device events alone, and
-    tracing every host op as well cost tens of seconds a window to stop
-    and summarise (and slowed the host it measures)."""
-    from torch.profiler import ProfilerActivity, profile
+    """A ``torch.profiler`` window over the body (``utils.profiling.trace``,
+    the CUDA activity alone), which stores the number of rounds it ran
+    under ``"rounds"`` in the dict this yields; on exit the dict holds
+    :func:`profile_summary` of the window, read back from the window's
+    Chrome trace by ``utils.profiling.summarize_trace``, and the trace is
+    deleted."""
+    import shutil
+
+    from copycat_tpu_torch.utils.profiling import trace
 
     window = {}
+    shutil.rmtree(TRACE_DIR, ignore_errors=True)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        yield window
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / window["rounds"]
-    rounds = window.pop("rounds")
-    window.update(profile_summary(prof, rounds, wall_ms, what, card))
+    try:
+        with trace(str(TRACE_DIR)):
+            t0 = time.perf_counter()
+            yield window
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / window["rounds"]
+        rounds = window.pop("rounds")
+        window.update(profile_summary(rounds, wall_ms, what, card))
+    finally:
+        shutil.rmtree(TRACE_DIR, ignore_errors=True)
 
 
 def profiled(fn, rounds_of, what: str, card: str) -> dict:
@@ -1154,26 +1178,29 @@ def profiled(fn, rounds_of, what: str, card: str) -> dict:
     return window
 
 
-def profile_summary(prof, rounds: int, wall_ms: float, what: str,
+def profile_summary(rounds: int, wall_ms: float, what: str,
                     card: str) -> dict:
-    evs = prof.key_averages()
-    cuda = torch.autograd.DeviceType.CUDA
-    kern = [e for e in evs if getattr(e, "device_type", None) == cuda]
-    busy_ms = sum(getattr(e, "self_device_time_total", 0)
-                  for e in kern) / 1e3 / rounds
-    if busy_ms == 0:
-        say("profile: the profiler saw no device time; idle share not "
-            "measured")
+    """The device lanes of the newest trace under ``TRACE_DIR``, through
+    ``utils.profiling.summarize_trace``: every kernel, copy and set the
+    card ran, summed and counted per round."""
+    from copycat_tpu_torch.utils.profiling import summarize_trace
+
+    t0 = time.perf_counter()
+    try:
+        rows = summarize_trace(str(TRACE_DIR), top=None)
+    except RuntimeError as exc:
+        say(f"profile: {exc}; idle share not measured")
         return {}
-    launches = sum(e.count for e in kern) / rounds
+    busy_ms = sum(ms for _, ms, _ in rows) / rounds
+    launches = sum(n for _, _, n in rows) / rounds
     say(f"profile ({what}, on {card}, profiler on, CUDA activity): wall "
         f"{wall_ms:.3f} ms/round, kernel time {busy_ms:.3f} ms/round, device "
         f"idle share {1 - busy_ms / wall_ms:.4f}, {launches:.1f} kernel "
-        f"launches/round over {rounds} rounds")
-    for e in sorted(kern, key=lambda e: e.self_device_time_total,
-                    reverse=True)[:8]:
-        say(f"profile:   {e.self_device_time_total / 1e3 / rounds:.4f} "
-            f"ms/round  x{e.count // rounds}  {e.key[:90]}")
+        f"launches/round over {rounds} rounds (trace read in "
+        f"{time.perf_counter() - t0:.1f}s)")
+    for name, ms, n in rows[:8]:
+        say(f"profile:   {ms / rounds:.4f} ms/round  x{n // rounds}  "
+            f"{name[:90]}")
     return {"wall_ms": wall_ms, "kernel_ms": busy_ms,
             "idle_share": 1 - busy_ms / wall_ms, "launches": launches}
 
@@ -2158,6 +2185,136 @@ def phase_server(ks: dict, card: str) -> tuple[dict, dict, dict]:
     return res["launches"], res["errs"], res
 
 
+PUBLIC_API = (("spi", {}), ("readmix", dict(bursts=3)), ("apply", {}))
+
+
+async def check_spi(run) -> dict:
+    """Every counter reads ``bursts × waves``: each increment applied once."""
+    finals = await each(c.get() for c in run.counters)
+    bad = [i for i, v in enumerate(finals) if v != run.expected]
+    if bad:
+        raise AssertionError(f"spi: {len(bad)} counters differ from "
+                             f"{run.expected}, first ctr{bad[0]} reads "
+                             f"{finals[bad[0]]}")
+    return {"checked": len(finals)}
+
+
+async def check_readmix(run) -> dict:
+    """Every read equals the write before it on its instance, every
+    instance wrote once a burst (1, 2, ...), and every counter reads
+    ``bursts``."""
+    writes = {}
+    for i, written, reads in run.answers:
+        if any(r != written for r in reads):
+            raise AssertionError(f"readmix: ctr{i} wrote {written} and "
+                                 f"read {reads}")
+        writes.setdefault(i, []).append(written)
+    want = list(range(1, run.bursts + 1))
+    bad = [i for i in range(len(run.counters))
+           if sorted(writes.get(i, [])) != want]
+    finals = await each(c.get() for c in run.counters)
+    bad += [i for i, v in enumerate(finals) if v != run.bursts]
+    if bad:
+        raise AssertionError(f"readmix: {len(bad)} counters off, first "
+                             f"ctr{bad[0]}")
+    return {"checked": len(run.answers), "latencies": run.latencies}
+
+
+async def check_apply(run) -> dict:
+    """Each key's ``get_and_set`` returns are its initial ``None`` and
+    every value written to it but the last applied, each once (one chain:
+    every write applied exactly once), and the key reads the last."""
+    from collections import Counter
+
+    finals = await each(h.get() for h in run.handles[0])
+    by_key = {}
+    for k, v, old in run.writes:
+        by_key.setdefault(k, []).append((v, old))
+    for k, final in enumerate(finals):
+        mine = by_key.get(k, [])
+        returned = Counter(old for _, old in mine)
+        written = Counter([None] + [v for v, _ in mine])
+        written[final] -= 1
+        if returned != +written:
+            raise AssertionError(f"apply: key k{k}'s writes do not form "
+                                 f"one chain ({len(mine)} writes)")
+    return {"checked": len(run.writes), "keys": len(finals),
+            "latencies": run.latencies}
+
+
+def phase_public_api(ks: dict, card: str) -> tuple[dict, dict, dict]:
+    """The bench's public-API scenarios through the port's
+    ``AtomixServer(executor="tpu")`` on the card: ``spi`` at its defaults
+    (1,000 ``DistributedAtomicLong``s, 5 bursts), ``readmix`` (1,000
+    instances, ``atomic``, 3 bursts) and ``apply`` at its defaults (4
+    groups, 24 sessions, 256 zipfian keys); each checked on every counter
+    and key (:func:`check_spi`, :func:`check_readmix`,
+    :func:`check_apply`). Around each, the kernel counts are zeroed and
+    read: each engine round launched each fused kernel once and the tally
+    never; the last engine step's arguments hold both against their
+    plain versions."""
+    from copycat_tpu_torch import bench
+    from copycat_tpu_torch.ops import consensus as cons
+    from copycat_tpu_torch.ops import kernels
+
+    checks = dict(spi=check_spi, readmix=check_readmix, apply=check_apply)
+    launches, errs, out = {}, {}, {}
+    for name, kw in PUBLIC_API:
+        seen_run = {}
+
+        async def check(run, _name=name):
+            seen_run.update(await checks[_name](run), engine=run.engine)
+
+        zero_counts(ks)
+        t0 = time.perf_counter()
+        with recording(cons, STEP_FNS) as seen:
+            result = getattr(bench, f"run_{name}")(check=check, **kw)
+        wall = time.perf_counter() - t0
+        launched = counts(ks)
+        rounds = seen_run["engine"]._groups.rounds
+        if launched["kth_largest"] or any(launched[n] != rounds
+                                          for n in STEP_FNS):
+            raise AssertionError(f"{name}: launches {launched} in {rounds} "
+                                 "engine rounds")
+        errs[name] = step_fns(kernels, dict(seen), f"a {name} engine's "
+                              "step")[1]
+        if name == "spi":
+            p50, p99 = result["p50_latency_ms"], result["p99_latency_ms"]
+        else:
+            lat = np.sort(np.asarray(seen_run["latencies"])) * 1e3
+            p50, p99 = float(lat[len(lat) // 2]), float(
+                lat[int(len(lat) * 0.99)])
+        per_round = {n: launched[n] / rounds for n in launched}
+        say(f"public_api {name}: {result['value']:.1f} client-visible "
+            f"{result['unit']} (best of {result['reps_n']}, reps "
+            f"{result['reps_min']:.1f}..{result['reps_max']:.1f}), p50 "
+            f"{p50:.3f} ms, p99 {p99:.3f} ms, {rounds} engine rounds, "
+            f"launches per round {per_round}, {wall:.1f} s wall, on {card}; "
+            f"{seen_run['checked']} answers checked, every one right; the "
+            "fused kernels equal their plain versions on its last step")
+        say(f"public_api {name}: " + json.dumps(result))
+        launches[name] = launched
+        out[name] = dict(result=result, p50_ms=p50, p99_ms=p99,
+                         rounds=rounds, wall_s=wall)
+    # where an spi engine round's time goes: the spi scenario again, two
+    # bursts, under the profiler (server open and instance creation
+    # included: every engine round of the run)
+    box = {}
+
+    async def engine_of(run):
+        box["engine"] = run.engine
+
+    what = ("every engine round of an spi run: one server, 1,000 "
+            "DistributedAtomicLong, capacity 1,024 P=3 L=16 S=4, counters "
+            "only, open, creation and 2 bursts")
+    with profiling(what, card) as window:
+        bench.run_spi(bursts=2, check=engine_of)
+        window["rounds"] = box["engine"]._groups.rounds
+    out["spi_profile"] = window
+    worst = {n: max(e[n] for e in errs.values()) for n in STEP_FNS}
+    return launches, worst, out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card", file=sys.stderr)
@@ -2264,6 +2421,9 @@ def main() -> int:
     lap("verdicts")
     launches["server"], server_errs, _ = phase_server(ks, card)
     lap("server")
+    public_launches, public_errs, _ = phase_public_api(ks, card)
+    launches.update(public_launches)
+    lap("public_api")
     say(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f}s")
     deep_errs = verdicts["deep verdict"]["max_abs_err"]
@@ -2287,11 +2447,16 @@ def main() -> int:
         "launches_facades": launches["facades"][name],
         "launches_deep_verdict": verdicts["deep verdict"]["launches"][name],
         "launches_server": launches["server"][name],
+        "launches_spi": launches["spi"][name],
+        "launches_readmix": launches["readmix"][name],
+        "launches_apply": launches["apply"][name],
         "max_abs_err": max(errs[name], facade_errs.get(name, 0),
-                           deep_errs.get(name, 0), server_errs.get(name, 0)),
+                           deep_errs.get(name, 0), server_errs.get(name, 0),
+                           public_errs.get(name, 0)),
         "max_abs_err_facades": facade_errs.get(name),
         "max_abs_err_deep_verdict": deep_errs.get(name),
         "max_abs_err_server": server_errs.get(name),
+        "max_abs_err_public_api": public_errs.get(name),
         **timing[name],
         "mixed_shape": mixed_timing.get(name),
     } for name, src in sources.items()]

@@ -42,7 +42,31 @@ scenarios, at the same shapes and in the same units:
   sessions (default 16) of one ``BulkSessionClient`` on a monotone engine,
   each owning an equal slice of the groups, ``--burst`` ops per group in
   one flush; reports committed session ops/s and checks group 0's
-  counter (exactly once).
+  counter (exactly once);
+- ``spi`` — client-visible ops/s through the PUBLIC resource API
+  (``run_spi``): ``--instances`` (1,000) device-backed
+  ``DistributedAtomicLong``s on one ``AtomixServer(executor="tpu")``,
+  ``--bursts`` (5) bursts of ``--waves`` (1) ``add_and_get(1)`` each, over
+  ``--transport local|tcp|native``; ``--payload str`` puts string values
+  into ``DistributedMap``s instead (the host-shadow cliff);
+- ``readmix`` — read-dominated traffic through the public API
+  (``run_readmix``): per burst one write and ``--reads`` (9) gets per
+  instance at ``--read-level atomic|sequential|none|linearizable``
+  (default atomic), through the server's read pump; reports reads/s;
+- ``apply`` — the apply-limited scenario (``run_apply``): one server
+  hosting ``--groups`` (4) Raft groups on one device engine,
+  ``--sessions`` (24) sessions, ``get_and_set`` over ``--keys`` (256)
+  zipfian (``--zipf`` 0.9) device counters interleaved with host-shadow
+  string sets from an ``--ineligible`` (0.25) fraction of sessions,
+  ``--ops`` (48) a session a burst; reports committed ops/s and the
+  ``apply.*`` family.
+
+The three public-API scenarios report the reference's fields under its
+metric names, less ``vs_baseline`` (a ratio to the reference's TPU north
+star); ``--metrics-json PATH`` writes the result with the scenario's
+server and client metrics snapshots, series, the bench's host-profiler
+summary and an attribution block (``metrics`` is empty for the engine
+scenarios, which spin no server).
 
 Defaults are the reference's: G=10,000 groups × P=3 peers, S=E=A=16
 submit slots / append window / applies per round, L=32 log slots for
@@ -62,14 +86,20 @@ resource leaves differ after the run (must be 0).
 
     python -m copycat_tpu_torch.bench
         [--scenario counter|map|lock|mixed|election|map_read|host|
-                    host_read|session]
-        [--read-level sequential|atomic] [--groups N --peers P
-        --rounds R --repeats K] [--mode deep|deepscan|bulk|queued]
+                    host_read|session|spi|readmix|apply]
+        [--device cuda|cpu] [--metrics-json PATH]
+        [--read-level sequential|atomic|none|linearizable] [--groups N
+        --peers P --rounds R --repeats K] [--mode deep|deepscan|bulk|queued]
         [--burst OPS_PER_GROUP] [--telemetry] [--sessions N]
+        [--instances N --bursts N --waves N --payload int|str
+        --pools counters|all --transport local|tcp|native --log-slots L]
+        [--reads N] [--ops N --keys N --zipf S --ineligible F]
 
-runs on the CUDA card and prints one JSON line naming the card and its
-power limit; without a card it raises. ``run_throughput(device="cpu")``
-runs it on the CPU for tests, and labels the result ``cpu``.
+probes the card first (``utils/platform.py``; a failed probe exits 2,
+there is no fallback to the CPU), runs on it and prints one JSON line;
+the engine scenarios' lines name the card and its power limit.
+``--device cpu`` (or ``run_*(device="cpu")``, as the tests call them)
+runs on the CPU, and an engine scenario's result says ``cpu``.
 """
 
 from __future__ import annotations
@@ -168,6 +198,126 @@ def spread(reps: list[float]) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# shared by the public-API scenarios (spi, readmix, apply) and main
+# ---------------------------------------------------------------------------
+
+#: per-run registry snapshots the scenarios contribute to the
+#: ``--metrics-json`` artifact (the server's ``stats_snapshot()`` and the
+#: client registry), keyed by component name; empty for the engine
+#: scenarios, which spin no server.
+METRICS_SNAPSHOTS: dict = {}
+
+#: retained ``/series`` windows the scenarios contribute to the artifact,
+#: keyed like ``METRICS_SNAPSHOTS``; empty when the servers ran with
+#: ``COPYCAT_SERIES=0`` or the scenario spins no server.
+SERIES_WINDOWS: dict = {}
+
+
+def capture_series(component: str, server_like: object) -> None:
+    """Stash ``server_like``'s retained series window (if it keeps one)
+    under ``component`` for the ``--metrics-json`` artifact."""
+    store = getattr(server_like, "series", None)
+    if store is not None:
+        SERIES_WINDOWS[component] = store.payload()
+
+
+def _bench_gc_tune():
+    """GC tuning shared by the public-API scenarios (the production-server
+    treatment): a 1k-op burst allocates ~20k short-lived objects (tasks,
+    futures, messages); with default thresholds a gen-2 pass lands
+    mid-burst and walks the whole live server. Freeze the settled heap
+    out of collection and raise gen0 so cyclic garbage is still collected,
+    just between bursts. Returns the function that undoes it (the
+    reference leaves the process tuned; here a scenario restores it in a
+    ``finally``, so a test process is left as it was)."""
+    import gc
+
+    saved = gc.get_threshold()
+    gc.collect()
+    gc.freeze()
+    gc.set_threshold(100_000, 50, 100)
+
+    def restore() -> None:
+        gc.unfreeze()
+        gc.set_threshold(*saved)
+
+    return restore
+
+
+async def _close_spi_stack(client, server, transport=None) -> None:
+    """Teardown shared by the public-API scenarios: bounded closes (a
+    wedged node must not hang the bench), then the transport's own
+    shutdown when it runs background machinery (the native epoll pair)."""
+    import asyncio
+
+    try:
+        await asyncio.wait_for(client.close(), 10)
+    except Exception:
+        pass
+    try:
+        await asyncio.wait_for(server.close(), 10)
+    except Exception:
+        pass
+    if transport is not None:
+        shutdown = getattr(transport, "shutdown", None)
+        if shutdown is not None:
+            shutdown()
+
+
+def zipf_sampler(rng, n_keys: int, s: float):
+    """Deterministic zipfian rank draw: inverse-CDF over 1/rank^s on the
+    caller's seeded ``rng``; returns a 0-based rank in ``[0, n_keys)``."""
+    import bisect
+
+    weights = [1.0 / (r ** s) for r in range(1, n_keys + 1)]
+    total_w = sum(weights)
+    cdf = []
+    acc = 0.0
+    for w in weights:
+        acc += w / total_w
+        cdf.append(acc)
+
+    def draw() -> int:
+        return min(bisect.bisect_left(cdf, rng.random()), n_keys - 1)
+
+    return draw
+
+
+def _device_label(device) -> str:
+    """What the scenarios' log lines name: the card, or ``cpu``."""
+    dev = torch.device("cuda" if device is None else device)
+    return card_info() if dev.type == "cuda" else dev.type
+
+
+def _artifact_meta(device) -> dict:
+    """Attribution block for ``--metrics-json`` artifacts: the git SHA,
+    the explicit knob overrides and a host fingerprint (the torch device,
+    the card count and the card's name and power limit) — two artifacts
+    whose blocks differ are different experiments, not a regression."""
+    import os
+    import platform
+
+    from .utils import knobs
+    from .utils.buildinfo import git_sha
+
+    dev = torch.device("cuda" if device is None else device)
+    return {
+        "git_sha": git_sha(),
+        "recorded_at": time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime()),
+        "knobs": knobs.overrides(),
+        "host": {
+            "hostname": platform.node(),
+            "machine": platform.machine(),
+            "python": platform.python_version(),
+            "cpus": os.cpu_count(),
+            "device": str(dev),
+            "device_count": torch.cuda.device_count(),
+            "card": card_info() if dev.type == "cuda" else None,
+        },
+    }
+
+
+# ---------------------------------------------------------------------------
 # submit patterns (every group submits the same S ops every round)
 # ---------------------------------------------------------------------------
 
@@ -227,7 +377,8 @@ SUBMIT_PATTERNS = {
     "mixed": mixed_submits,
 }
 SCENARIOS = tuple(SUBMIT_PATTERNS) + ("election", "map_read", "host",
-                                      "host_read", "session")
+                                      "host_read", "session", "spi",
+                                      "readmix", "apply")
 HOST_MODES = ("deep", "deepscan", "bulk", "queued")
 HOST_LOG_SLOTS = 64
 SESSIONS = 16
@@ -807,11 +958,616 @@ def run_session(n_sessions: int = SESSIONS, groups: int = GROUPS,
     }
 
 
+# ---------------------------------------------------------------------------
+# the public resource API: AtomixServer(executor="tpu") and its clients
+# ---------------------------------------------------------------------------
+
+SPI_INSTANCES, SPI_BURSTS, SPI_LOG_SLOTS = 1000, 5, 16
+SPI_PAYLOADS, SPI_POOLS = ("int", "str"), ("counters", "all")
+SPI_TRANSPORTS = ("local", "tcp", "native")
+READMIX_READS, READMIX_LEVEL = 9, "atomic"
+READMIX_LEVELS = ("atomic", "sequential", "none", "linearizable")
+APPLY = dict(groups=4, sessions=24, ops=48, bursts=5, keys=256, zipf=0.9,
+             ineligible=0.25)
+
+
+def run_spi(instances: int = SPI_INSTANCES, bursts: int = SPI_BURSTS,
+            waves: int = 1, payload: str = "int", pools: str | None = None,
+            transport: str = "local", log_slots: int = SPI_LOG_SLOTS,
+            peers: int = PEERS, device: torch.device | str | None = None,
+            check=None) -> dict:
+    """The reference's ``spi`` scenario: client-visible throughput through
+    the public resource API. ``instances`` device-backed
+    ``DistributedAtomicLong``s (``DistributedMap``s with string values
+    for ``payload="str"``, the host-shadow cliff) on one
+    ``AtomixServer(executor="tpu")``; ``bursts`` bursts of ``waves``
+    ``add_and_get(1)`` per instance, each instance's in sequence.
+    The engine is ``DeviceEngineConfig(capacity=pow2 >= instances (min
+    16), num_peers=peers, log_slots, submit_slots=4)``, counters only
+    (``pools="counters"``, the default for ``int``) or every pool.
+    ``transport`` is ``local`` (in memory), ``tcp`` (asyncio sockets) or
+    ``native`` (the C++ epoll transport; exits when its extension is
+    missing).
+
+    Reports the reference's fields under its metric name, except
+    ``vs_baseline`` (a ratio to the reference's TPU north star, which the
+    port's bench reports for no scenario). ``check``, when given, is
+    awaited before teardown with the handles (``server``, ``client``,
+    ``engine``, ``counters``, ``expected``): the tests' and the smoke's
+    exactly-once hook, outside the result."""
+    import asyncio
+    from types import SimpleNamespace
+
+    from .atomic import DistributedAtomicLong
+    from .io.local import LocalServerRegistry, LocalTransport
+    from .io.transport import Address
+    from .manager.atomix import AtomixClient, AtomixServer
+    from .manager.device_executor import DeviceEngineConfig
+
+    if payload not in SPI_PAYLOADS:
+        raise SystemExit(f"spi payload {payload!r}: int|str")
+    pools = pools or ("counters" if payload == "int" else "all")
+    if pools not in SPI_POOLS:
+        raise SystemExit(f"spi pools {pools!r}: counters|all")
+    if transport not in SPI_TRANSPORTS:
+        raise SystemExit(f"spi transport {transport!r}: local|tcp|native")
+    engine_pools = (ap.ResourceConfig.counters_only() if pools == "counters"
+                    else None)
+    capacity = 1 << max(4, (instances - 1).bit_length())  # pow2 >= instances
+    registry = LocalServerRegistry()  # shared by both ends in local mode
+
+    def make_transport():
+        if transport == "local":
+            return LocalTransport(registry)
+        if transport == "tcp":
+            from .io.tcp import TcpTransport
+            return TcpTransport()
+        from .io.native import NativeTcpTransport, native_available
+        if not native_available():
+            raise SystemExit("native transport unavailable (make -C native)")
+        return NativeTcpTransport()
+
+    async def drive() -> dict:
+        addr = Address("127.0.0.1", 15999)
+        # one transport for both ends: the native kind owns an epoll
+        # thread pair, shut down in the finally
+        tr = make_transport()
+        server = AtomixServer(
+            addr, [addr], tr, election_timeout=0.5, heartbeat_interval=0.1,
+            session_timeout=60.0, executor="tpu",
+            engine_config=DeviceEngineConfig(
+                capacity=capacity, num_peers=peers, log_slots=log_slots,
+                submit_slots=4, resource=engine_pools, device=device))
+        await server.open()
+        client = AtomixClient([addr], tr, session_timeout=60.0)
+        await client.open()
+        restore_gc = None
+        try:
+            t0 = time.perf_counter()
+            if payload == "str":
+                from .collections import DistributedMap
+                counters = await asyncio.gather(
+                    *(client.get(f"map{i}", DistributedMap)
+                      for i in range(instances)))
+            else:
+                counters = await asyncio.gather(
+                    *(client.get(f"ctr{i}", DistributedAtomicLong)
+                      for i in range(instances)))
+            engine = server.server.state_machine.device_engine
+            on_device = engine._next_group
+            log(f"bench[spi:{payload}]: {instances} instances created in "
+                f"{time.perf_counter() - t0:.1f}s; {on_device} on-device "
+                f"(capacity {capacity}); device={_device_label(device)}")
+            restore_gc = _bench_gc_tune()
+
+            lats: list[float] = []
+            n_op = [0]
+
+            async def one(c) -> None:
+                for _ in range(waves):
+                    t = time.perf_counter()
+                    if payload == "str":
+                        # string values refuse the int32 lanes: host shadow
+                        n_op[0] += 1
+                        await c.put("k", f"v{n_op[0]}")
+                    else:
+                        await c.add_and_get(1)
+                    lats.append(time.perf_counter() - t)
+
+            reps = []
+            best_lats: list[float] = []
+            burst_ops = instances * waves
+            for rep in range(bursts):
+                lats.clear()
+                t0 = time.perf_counter()
+                await asyncio.gather(*(one(c) for c in counters))
+                dt = time.perf_counter() - t0
+                ops = burst_ops / dt
+                reps.append(ops)
+                if ops >= max(reps):
+                    best_lats = list(lats)  # latencies pair with `value`
+                log(f"bench[spi]: rep {rep}: {burst_ops} ops in {dt:.3f}s "
+                    f"-> {ops:,.0f} client-visible ops/sec")
+            lat = np.asarray(sorted(best_lats))
+            rounds0 = engine._groups.rounds if engine._groups else 0
+            METRICS_SNAPSHOTS["server"] = server.server.stats_snapshot()
+            METRICS_SNAPSHOTS["client"] = client.client.metrics.snapshot()
+            capture_series("server", server.server)
+            if check is not None:
+                await check(SimpleNamespace(
+                    server=server, client=client, engine=engine,
+                    counters=counters, expected=bursts * waves))
+            return {
+                "metric": (f"spi_client_visible_ops_per_sec_{instances}"
+                           f"_device_instances"
+                           + ("" if transport == "local"
+                              else f"_{transport}")
+                           + ("" if payload == "int" else "_shadow")
+                           + ("" if waves == 1 else f"_w{waves}")),
+                "transport": transport,
+                "payload": payload,
+                "pipeline_depth": waves,
+                "value": max(reps),
+                "unit": "ops/sec",
+                "p50_latency_ms": float(lat[len(lat) // 2]) * 1e3,
+                "p99_latency_ms": float(lat[int(len(lat) * 0.99)]) * 1e3,
+                "on_device_instances": int(on_device),
+                "engine_rounds": int(rounds0),
+                **spread(reps),
+            }
+        finally:
+            if restore_gc is not None:
+                restore_gc()
+            await _close_spi_stack(client, server, tr)
+
+    return asyncio.run(drive())
+
+
+def run_readmix(instances: int = SPI_INSTANCES, bursts: int = SPI_BURSTS,
+                reads: int = READMIX_READS, read_level: str = READMIX_LEVEL,
+                log_slots: int = SPI_LOG_SLOTS, peers: int = PEERS,
+                device: torch.device | str | None = None,
+                check=None) -> dict:
+    """The reference's ``readmix`` scenario: read-dominated traffic
+    through the public API. ``instances`` device-backed
+    ``DistributedAtomicLong``s on one ``AtomixServer(executor="tpu")``
+    (the spi engine, counters only); per burst every instance commits ONE
+    ``add_and_get(1)`` and then serves ``reads`` gets at ``read_level``
+    (``atomic``: lease-gated, the default; ``sequential``; ``none``;
+    ``linearizable``: quorum-confirmed). The reads ride the no-append
+    query lane and, with ``COPYCAT_SERVER_READ_PUMP`` on (the default),
+    the server's read pump, whose device-eligible set goes through one
+    ``query_step`` a window. Headline: client-visible reads/s.
+
+    Reports the reference's fields except ``vs_baseline``; like the
+    reference, raises unless the first counter reads ``bursts``.
+    ``check``, when given, is awaited before teardown with the handles
+    (``server``, ``client``, ``engine``, ``counters``), ``answers``: for
+    every instance and burst ``(i, written, [reads])``, and
+    ``latencies``: the best burst's op latencies in seconds."""
+    import asyncio
+    from types import SimpleNamespace
+
+    from .atomic import DistributedAtomicLong
+    from .io.local import LocalServerRegistry, LocalTransport
+    from .io.transport import Address
+    from .manager.atomix import AtomixClient, AtomixServer
+    from .manager.device_executor import DeviceEngineConfig
+    from .resource.consistency import Consistency
+    from .utils import knobs
+
+    facade_level = {"atomic": Consistency.ATOMIC,
+                    "sequential": Consistency.SEQUENTIAL,
+                    "none": Consistency.NONE}.get(read_level)
+    if read_level not in READMIX_LEVELS:
+        raise SystemExit(f"readmix read level {read_level!r}: "
+                         "atomic|sequential|none|linearizable")
+    read_pump = knobs.get_bool("COPYCAT_SERVER_READ_PUMP")
+    capacity = 1 << max(4, (instances - 1).bit_length())
+    registry = LocalServerRegistry()
+
+    async def drive() -> dict:
+        addr = Address("127.0.0.1", 15998)
+        server = AtomixServer(
+            addr, [addr], LocalTransport(registry),
+            election_timeout=0.5, heartbeat_interval=0.1,
+            session_timeout=60.0, executor="tpu",
+            engine_config=DeviceEngineConfig(
+                capacity=capacity, num_peers=peers, log_slots=log_slots,
+                submit_slots=4, resource=ap.ResourceConfig.counters_only(),
+                device=device))
+        await server.open()
+        client = AtomixClient([addr], LocalTransport(registry),
+                              session_timeout=60.0)
+        await client.open()
+        restore_gc = None
+        try:
+            t0 = time.perf_counter()
+            counters = await asyncio.gather(
+                *(client.get(f"ctr{i}", DistributedAtomicLong)
+                  for i in range(instances)))
+            for c in counters:
+                if facade_level is not None:
+                    c.with_consistency(facade_level)
+                else:
+                    # quorum-confirmed reads: the facade vocabulary tops
+                    # out at ATOMIC; override the read level only
+                    c._read_cl = "linearizable"
+            engine = server.server.state_machine.device_engine
+            on_device = engine._next_group
+            log(f"bench[readmix:{read_level}]: {instances} instances in "
+                f"{time.perf_counter() - t0:.1f}s; {on_device} on-device; "
+                f"read pump {'ON' if read_pump else 'OFF'}; "
+                f"device={_device_label(device)}")
+            restore_gc = _bench_gc_tune()
+            answers = [] if check is not None else None
+            lats: list[float] = []
+
+            async def timed(op):
+                t = time.perf_counter()
+                out = await op
+                lats.append(time.perf_counter() - t)
+                return out
+
+            async def one(i, c) -> None:
+                written = await timed(c.add_and_get(1))
+                got = [await timed(c.get()) for _ in range(reads)]
+                if answers is not None:
+                    answers.append((i, written, got))
+
+            burst_reads = instances * reads
+            burst_ops = instances * (reads + 1)
+            reps = []
+            best_lats: list[float] = []
+            for rep in range(bursts):
+                lats.clear()
+                t0 = time.perf_counter()
+                await asyncio.gather(*(one(i, c)
+                                       for i, c in enumerate(counters)))
+                dt = time.perf_counter() - t0
+                reads_s = burst_reads / dt
+                reps.append(reads_s)
+                if reads_s >= max(reps):
+                    best_lats = list(lats)
+                log(f"bench[readmix]: rep {rep}: {burst_reads} reads + "
+                    f"{instances} writes in {dt:.3f}s -> "
+                    f"{reads_s:,.0f} reads/sec "
+                    f"({burst_ops / dt:,.0f} ops/sec)")
+            # the reference's spot check: the first counter saw every
+            # increment
+            v = await counters[0].get()
+            if v != bursts:
+                raise AssertionError(f"readmix: counter 0 reads {v}, "
+                                     f"not {bursts}")
+            METRICS_SNAPSHOTS["server"] = server.server.stats_snapshot()
+            METRICS_SNAPSHOTS["client"] = client.client.metrics.snapshot()
+            if check is not None:
+                await check(SimpleNamespace(
+                    server=server, client=client, engine=engine,
+                    counters=counters, answers=answers, bursts=bursts,
+                    latencies=best_lats))
+            best = max(reps)
+            return {
+                "metric": (f"readmix_client_visible_reads_per_sec_"
+                           f"{instances}_device_instances_{read_level}"
+                           + ("" if read_pump else "_per_op")),
+                "value": best,
+                "unit": "reads/sec",
+                "read_pump": read_pump,
+                "read_level": read_level,
+                "reads_per_write": reads,
+                "ops_per_sec": best * (reads + 1) / reads,
+                "on_device_instances": int(on_device),
+                **spread(reps),
+            }
+        finally:
+            if restore_gc is not None:
+                restore_gc()
+            await _close_spi_stack(client, server)
+
+    return asyncio.run(drive())
+
+
+def _shadow_name(j: int, groups: int) -> str:
+    """A host-shadow value name the server's crc32 router puts on group
+    ``j % groups``, so that every group's log interleaves ineligible
+    entries (hash luck leaving a group shadow-free would hand it
+    contiguous runs and measure nothing)."""
+    import zlib
+
+    name, t = f"sh{j}", 0
+    while zlib.crc32(name.encode()) % groups != j % groups:
+        t += 1
+        name = f"sh{j}x{t}"
+    return name
+
+
+def run_apply(groups: int = APPLY["groups"],
+              sessions: int = APPLY["sessions"], ops: int = APPLY["ops"],
+              bursts: int = APPLY["bursts"], keys: int = APPLY["keys"],
+              zipf: float = APPLY["zipf"],
+              ineligible: float = APPLY["ineligible"],
+              device: torch.device | str | None = None,
+              check=None) -> dict:
+    """The reference's ``apply`` scenario: committed ops/s through the
+    public API on one member hosting ``groups`` Raft groups over ONE
+    device engine (``DeviceEngineConfig(capacity=pow2 >= keys +
+    sessions (min 16), num_peers=3, log_slots=32, submit_slots=8)``,
+    counters only). Of ``sessions`` client sessions, an ``ineligible``
+    fraction (at least one when positive) stream host-shadow string
+    ``set``s, 2 in flight, on values whose names route to every group;
+    the others stream ``get_and_set`` of seeded values, 8 in flight, on
+    per-session handles to a shared zipfian (``zipf``) keyspace of
+    ``keys`` device counters — ``ops`` a burst each (the shadow sessions
+    a quarter of that). Each submission waits a seeded number of loop
+    turns first, so shadow entries land inside device runs. One untimed
+    warm-up wave; tracing on for the ``bursts`` timed ones only (the
+    ``latency.apply_ms`` histograms), off again after.
+
+    Reports the reference's fields, the ``apply.*`` family included,
+    except ``vs_baseline``. ``check``, when given, is awaited before
+    teardown with the handles (``server``, ``engine``, ``handles``: per
+    device session, per key), ``writes``: every device write as ``(key,
+    value written, value returned)``, warm-up included, and
+    ``latencies``: the best burst's op latencies in seconds."""
+    import asyncio
+    import random
+    from types import SimpleNamespace
+
+    from .atomic import DistributedAtomicValue
+    from .io.local import LocalServerRegistry, LocalTransport
+    from .io.transport import Address
+    from .manager.atomix import AtomixClient, AtomixServer
+    from .manager.device_executor import DeviceEngineConfig
+    from .utils import tracing
+
+    groups = max(1, groups)
+    rng = random.Random(17)
+    draw_key = zipf_sampler(rng, keys, zipf)
+    capacity = 1 << max(4, (keys + sessions - 1).bit_length())
+
+    async def drive() -> dict:
+        registry = LocalServerRegistry()
+        addr = Address("local", 17500)
+        server = AtomixServer(
+            addr, [addr], LocalTransport(registry),
+            election_timeout=0.5, heartbeat_interval=0.1,
+            session_timeout=120.0, executor="tpu", groups=groups,
+            engine_config=DeviceEngineConfig(
+                capacity=capacity, num_peers=3, log_slots=32,
+                submit_slots=8, resource=ap.ResourceConfig.counters_only(),
+                device=device))
+        await server.open()
+        clients = [AtomixClient([addr], LocalTransport(registry),
+                                session_timeout=120.0)
+                   for _ in range(sessions)]
+        await asyncio.gather(*(c.open() for c in clients))
+        rs = server.server
+        # a positive fraction always yields >= 1 shadow session; exactly 0
+        # yields none (the pure-eligible datapoint)
+        n_shadow = 0 if ineligible <= 0 else min(
+            sessions - 1, max(1, round(sessions * ineligible)))
+        n_elig = sessions - n_shadow
+        restore_gc = None
+        writes = [] if check is not None else None
+        try:
+            # per-session handles to the SHARED keyspace: instances of one
+            # value share a resource (and its device row), while every
+            # session submits through its own connection and seq space
+            handles = await asyncio.gather(*(
+                asyncio.gather(*(clients[i].get(f"k{k}",
+                                                DistributedAtomicValue)
+                                 for k in range(keys)))
+                for i in range(n_elig)))
+            shadows = await asyncio.gather(
+                *(clients[n_elig + j].get(_shadow_name(j, groups),
+                                          DistributedAtomicValue)
+                  for j in range(n_shadow)))
+            engine = rs.state_machine.device_engine
+            log(f"bench[apply]: 1 member x {groups} groups, {n_elig} device "
+                f"+ {n_shadow} host-shadow sessions x {ops} ops/burst, zipf "
+                f"s={zipf} over {keys} keys, parallel_apply="
+                f"{rs._parallel_apply} fuse={rs._apply_fuse}; "
+                f"device={_device_label(device)}")
+            restore_gc = _bench_gc_tune()
+            lats: list[float] = []
+
+            # Bounded in-flight windows, no chunk barriers: a standing
+            # backlog keeps the applied windows large. The shadow window
+            # is shallow (2): deep shadow pipelining would flush
+            # ineligible entries contiguously and hide the interleave.
+            # Both lanes wait a few seeded loop turns before sending, so
+            # shadow entries land in the middle of device runs.
+            async def one_device(i: int, script: list) -> None:
+                h = handles[i]
+                sem = asyncio.Semaphore(8)
+
+                async def go(k: int, v: int, yields: int) -> None:
+                    async with sem:
+                        for _ in range(yields):
+                            await asyncio.sleep(0)
+                        t = time.perf_counter()
+                        old = await h[k].get_and_set(v)
+                        lats.append(time.perf_counter() - t)
+                        if writes is not None:
+                            writes.append((k, v, old))
+                await asyncio.gather(*(go(k, v, rng.randrange(8))
+                                       for k, v in script))
+
+            async def one_shadow(j: int, script: list) -> None:
+                sh = shadows[j]
+                sem = asyncio.Semaphore(2)
+
+                async def go(s: str, yields: int) -> None:
+                    async with sem:
+                        for _ in range(yields):
+                            await asyncio.sleep(0)
+                        t = time.perf_counter()
+                        await sh.set(s)
+                        lats.append(time.perf_counter() - t)
+                await asyncio.gather(*(go(s, rng.randrange(8))
+                                       for s in script))
+
+            # a 2-deep shadow stream covers ~1/4 the ops of an 8-deep
+            # device stream in the same wall window: shorter scripts keep
+            # the two co-terminous
+            shadow_ops = max(2, ops // 4)
+            burst_ops = n_elig * ops + n_shadow * shadow_ops
+
+            # warm-up wave (untimed, untraced): first-round costs
+            await asyncio.gather(
+                *(one_device(i, [(draw_key(), 1) for _ in range(ops // 2)])
+                  for i in range(n_elig)),
+                *(one_shadow(j, [f"w{j}x{t}" for t in range(shadow_ops // 2)])
+                  for j in range(n_shadow)))
+
+            # trace every timed request: the latency.apply_ms histograms
+            # (commit -> commit future resolved) hold timed samples only
+            tracing.TRACER.clear()
+            tracing.enable()
+            reps = []
+            best_lats: list[float] = []
+            seq = 0
+            for rep in range(bursts):
+                lats.clear()
+                escripts = [[(draw_key(), rng.randrange(1 << 20))
+                             for _ in range(ops)] for _ in range(n_elig)]
+                sscripts = []
+                for _ in range(n_shadow):
+                    script = []
+                    for _ in range(shadow_ops):
+                        seq += 1
+                        script.append(f"s{seq}")
+                    sscripts.append(script)
+                t0 = time.perf_counter()
+                await asyncio.gather(
+                    *(one_device(i, s) for i, s in enumerate(escripts)),
+                    *(one_shadow(j, s) for j, s in enumerate(sscripts)))
+                dt = time.perf_counter() - t0
+                reps.append(burst_ops / dt)
+                if burst_ops / dt >= max(reps):
+                    best_lats = list(lats)
+                log(f"bench[apply]: rep {rep}: {burst_ops} committed ops "
+                    f"in {dt:.3f}s -> {burst_ops / dt:,.0f} ops/sec")
+            METRICS_SNAPSHOTS["server"] = rs.stats_snapshot()
+            METRICS_SNAPSHOTS["client"] = clients[0].client.metrics.snapshot()
+            tracing.disable()
+            # apply-phase tail latency per group; the headline p99 is the
+            # worst group's (one group's stalled apply is the client tail)
+            lat = {}
+            for grp in rs.groups:
+                h = grp.metrics.histogram("latency.apply_ms")
+                if h.count:
+                    lat[str(grp.group_id)] = h.percentile(99)
+            fused = rs._metrics.counter("apply.fused_dispatches").value
+            fused_rows = rs._metrics.histogram("apply.fused_rows")
+            fused_groups = rs._metrics.histogram("apply.fused_groups")
+            runs = spans = conflicts = vops = 0
+            for grp in rs.groups:
+                runs += grp.metrics.counter("vector_runs").value
+                vops += grp.metrics.counter("vector_ops").value
+                spans += grp.metrics.counter("apply.parallel_spans").value
+                conflicts += grp.metrics.counter(
+                    "apply.conflict_flushes").value
+            if check is not None:
+                await check(SimpleNamespace(
+                    server=server, engine=engine, handles=handles,
+                    writes=writes, latencies=best_lats))
+            return {
+                "metric": (f"apply_committed_ops_per_sec_{sessions}"
+                           f"_sessions_{groups}_groups"),
+                "value": max(reps),
+                "unit": "ops/sec",
+                "groups": groups,
+                "sessions": sessions,
+                "keys": keys,
+                "zipf_s": zipf,
+                "ineligible_fraction": ineligible,
+                "parallel_apply": rs._parallel_apply,
+                "apply_fuse": rs._apply_fuse,
+                "latency_apply_p99_ms": max(lat.values()) if lat else 0.0,
+                "latency_apply_p99_ms_per_group": lat,
+                "apply": {
+                    "vector_runs": runs,
+                    "vector_ops": vops,
+                    "parallel_spans": spans,
+                    "conflict_flushes": conflicts,
+                    "fused_dispatches": fused,
+                    "rows_per_dispatch": fused_rows.mean if fused else 0.0,
+                    "groups_per_dispatch": (fused_groups.mean if fused
+                                            else 0.0),
+                    "runs_per_dispatch": runs / fused if fused else 0.0,
+                },
+                **spread(reps),
+            }
+        finally:
+            tracing.disable()
+            if restore_gc is not None:
+                restore_gc()
+            for c in clients:
+                try:
+                    await asyncio.wait_for(c.close(), 10)
+                except Exception:
+                    pass
+            try:
+                await asyncio.wait_for(server.close(), 10)
+            except Exception:
+                pass
+
+    return asyncio.run(drive())
+
+
+def _run(args) -> dict:
+    """The scenario ``args`` names, at its flags (a flag left unset takes
+    the scenario's default)."""
+    dev = args.device
+    if args.scenario == "spi":
+        return run_spi(args.instances, args.bursts, args.waves, args.payload,
+                       args.pools, args.transport,
+                       args.log_slots or SPI_LOG_SLOTS, args.peers,
+                       device=dev)
+    if args.scenario == "readmix":
+        return run_readmix(args.instances, args.bursts, args.reads,
+                           args.read_level or READMIX_LEVEL,
+                           args.log_slots or SPI_LOG_SLOTS, args.peers,
+                           device=dev)
+    if args.scenario == "apply":
+        return run_apply(args.groups or APPLY["groups"],
+                         args.sessions or APPLY["sessions"], args.ops,
+                         args.bursts, args.keys, args.zipf, args.ineligible,
+                         device=dev)
+    level = args.read_level or "sequential"
+    kw = dict(peers=args.peers, rounds=args.rounds, repeats=args.repeats,
+              device=dev)
+    if args.scenario == "election":
+        return run_election(groups=args.groups or ELECTION_GROUPS, **kw)
+    if args.scenario == "map_read":
+        return run_map_read(level, groups=args.groups or GROUPS, **kw)
+    if args.scenario in ("host", "host_read", "session"):
+        kw = dict(groups=args.groups or GROUPS, peers=args.peers,
+                  burst=args.burst, repeats=args.repeats, device=dev)
+        if args.scenario == "host":
+            return run_host(args.mode, telemetry=args.telemetry, **kw)
+        if args.scenario == "host_read":
+            return run_host_read(level, **kw)
+        return run_session(args.sessions or SESSIONS,
+                           telemetry=args.telemetry, **kw)
+    return run_throughput(args.scenario, groups=args.groups or GROUPS, **kw)
+
+
 def main(argv: list[str] | None = None) -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--scenario", choices=SCENARIOS, default="counter")
-    p.add_argument("--read-level", choices=READ_LEVELS, default="sequential",
-                   help="map_read, host_read: how the reads are served")
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                   help="cuda (a failed probe exits 2) or cpu; there is no "
+                        "fallback from one to the other")
+    p.add_argument("--metrics-json", metavar="PATH",
+                   help="write the result plus the scenario's metrics "
+                        "snapshots, series, profile and attribution block "
+                        "as one JSON artifact")
+    p.add_argument("--read-level", choices=READMIX_LEVELS,
+                   help="map_read, host_read: sequential (default) or "
+                        f"atomic; readmix: any (default {READMIX_LEVEL})")
     p.add_argument("--mode", choices=HOST_MODES, default="deep",
                    help="host: the drive")
     p.add_argument("--burst", type=int,
@@ -820,33 +1576,73 @@ def main(argv: list[str] | None = None) -> None:
                         "--mode queued)")
     p.add_argument("--telemetry", action="store_true",
                    help="host, session: device telemetry on")
-    p.add_argument("--sessions", type=int, default=SESSIONS,
-                   help="session: sessions of the one client")
+    p.add_argument("--sessions", type=int,
+                   help=f"session: sessions of the one client (default "
+                        f"{SESSIONS}); apply: client sessions (default "
+                        f"{APPLY['sessions']})")
     p.add_argument("--groups", type=int,
-                   help=f"default {GROUPS} ({ELECTION_GROUPS} for election)")
+                   help=f"default {GROUPS} ({ELECTION_GROUPS} for election; "
+                        f"apply: Raft groups of the server, default "
+                        f"{APPLY['groups']})")
     p.add_argument("--peers", type=int, default=PEERS)
     p.add_argument("--rounds", type=int, default=ROUNDS)
     p.add_argument("--repeats", type=int, default=REPEATS)
+    p.add_argument("--instances", type=int, default=SPI_INSTANCES,
+                   help="spi, readmix: device resource instances")
+    p.add_argument("--bursts", type=int, default=SPI_BURSTS,
+                   help="spi, readmix, apply: timed bursts")
+    p.add_argument("--waves", type=int, default=1,
+                   help="spi: commands in flight per instance")
+    p.add_argument("--payload", choices=SPI_PAYLOADS, default="int",
+                   help="spi: int counters, or str map values (host shadow)")
+    p.add_argument("--pools", choices=SPI_POOLS,
+                   help="spi: engine pools (default counters; all for str)")
+    p.add_argument("--transport", choices=SPI_TRANSPORTS, default="local",
+                   help="spi: the transport under client and server")
+    p.add_argument("--log-slots", type=int,
+                   help=f"spi, readmix: engine log slots (default "
+                        f"{SPI_LOG_SLOTS})")
+    p.add_argument("--reads", type=int, default=READMIX_READS,
+                   help="readmix: reads per write")
+    p.add_argument("--ops", type=int, default=APPLY["ops"],
+                   help="apply: commands per device session a burst")
+    p.add_argument("--keys", type=int, default=APPLY["keys"],
+                   help="apply: device counters in the zipfian keyspace")
+    p.add_argument("--zipf", type=float, default=APPLY["zipf"],
+                   help="apply: zipf skew of the key draw")
+    p.add_argument("--ineligible", type=float, default=APPLY["ineligible"],
+                   help="apply: fraction of host-shadow sessions")
     args = p.parse_args(argv)
-    kw = dict(peers=args.peers, rounds=args.rounds, repeats=args.repeats)
-    if args.scenario == "election":
-        result = run_election(groups=args.groups or ELECTION_GROUPS, **kw)
-    elif args.scenario == "map_read":
-        result = run_map_read(args.read_level, groups=args.groups or GROUPS,
-                              **kw)
-    elif args.scenario in ("host", "host_read", "session"):
-        kw = dict(groups=args.groups or GROUPS, peers=args.peers,
-                  burst=args.burst, repeats=args.repeats)
-        if args.scenario == "host":
-            result = run_host(args.mode, telemetry=args.telemetry, **kw)
-        elif args.scenario == "host_read":
-            result = run_host_read(args.read_level, **kw)
-        else:
-            result = run_session(args.sessions, telemetry=args.telemetry,
-                                 **kw)
-    else:
-        result = run_throughput(args.scenario, groups=args.groups or GROUPS,
-                                **kw)
+    if (args.scenario in ("map_read", "host_read")
+            and args.read_level not in (None, *READ_LEVELS)):
+        p.error(f"--read-level {args.read_level}: {args.scenario} serves "
+                f"{'|'.join(READ_LEVELS)}")
+    from .utils import profiler
+    from .utils.platform import require_devices
+
+    # probe the card before the first CUDA use; a failed probe exits 2
+    require_devices(args.device, env="COPYCAT_BENCH_DEVICE_TIMEOUT")
+    METRICS_SNAPSHOTS.clear()
+    SERIES_WINDOWS.clear()
+    # the bench holds its own profiler reference for the whole run: the
+    # servers release theirs at close, and this one keeps the sampled
+    # window alive for the artifact's top-frame summary (None under
+    # COPYCAT_PROFILE=0: no "profile" key)
+    bench_profiler = profiler.acquire()
+    try:
+        result = _run(args)
+        if args.metrics_json:
+            artifact = {**result, "scenario": args.scenario,
+                        "meta": _artifact_meta(args.device),
+                        "metrics": METRICS_SNAPSHOTS,
+                        "series": SERIES_WINDOWS}
+            if bench_profiler is not None:
+                artifact["profile"] = bench_profiler.top_summary(top=10)
+            with open(args.metrics_json, "w") as f:
+                json.dump(artifact, f)
+            log(f"bench: metrics snapshot written to {args.metrics_json}")
+    finally:
+        profiler.release(bench_profiler)
     print(json.dumps(result))
 
 

@@ -60,6 +60,7 @@ SECTIONS = (
     ("observability", "Observability & invariants"),
     ("client", "Client"),
     ("verdict", "Linearizability verdict runner"),
+    ("platform", "Device probe"),
 )
 _SECTION_KEYS = tuple(key for key, _ in SECTIONS)
 
@@ -285,6 +286,16 @@ _knob("COPYCAT_VERDICT_DEEP_SAMPLE", "int", 48,
 _knob("COPYCAT_VERDICT_DEEP_EPOCHS", "int", 40,
       "fault epochs in the deep-plane block", section="verdict")
 
+# --- platform --------------------------------------------------------------
+_knob("COPYCAT_DEVICE_TIMEOUT", "float", 120.0,
+      "seconds per device probe (`utils/platform.py`) before declaring "
+      "the card unreachable", section="platform")
+_knob("COPYCAT_DEVICE_PROBES", "int", 5,
+      "device probe attempts before exiting 2", section="platform")
+_knob("COPYCAT_BENCH_DEVICE_TIMEOUT", "float", 120.0,
+      "probe timeout for bench runs (a failed probe exits 2; the port "
+      "never falls back to the CPU)", section="platform")
+
 
 # --- typed getters ---------------------------------------------------------
 
@@ -350,6 +361,15 @@ def get_bool(name: str, default: bool | None = None) -> bool:
                 f"{name} has no registered default; pass default=")
         return bool(knob.default)
     return value.strip().lower() not in _FALSY
+
+
+def overrides() -> dict[str, str]:
+    """Every registered knob explicitly set in the environment, with its
+    raw value — the knob snapshot ``bench.py --metrics-json`` embeds so
+    artifacts from different runs are comparable (an artifact whose knobs
+    differ is a different experiment, not a regression)."""
+    return {name: os.environ[name] for name in sorted(REGISTRY)
+            if name in os.environ}
 
 
 # --- tables -----------------------------------------------------

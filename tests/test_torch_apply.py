@@ -72,7 +72,7 @@ def test_apply_entry_matches_reference(opcode):
     index = rng.integers(1, 50, (G, P)).astype(np.int32)
     live = rng.random((G, P)) < 0.8
     op = np.full((G, P), opcode, np.int32)
-    want_res, want = jap.apply_entry(res, op, a, b, c, index, now, live)
+    want_res, want = _REF_APPLY_ENTRY(res, op, a, b, c, index, now, live)
     t = [torch.from_numpy(x) for x in (op, a, b, c, index, now, live)]
     got_res, got = tap.apply_entry(convert.resources_to_torch(res, "cpu"), *t)
     _same(want_res, got_res, f"opcode {opcode}")
@@ -109,6 +109,9 @@ def test_drain_without_ring_returns_zeros():
     assert out[-1].dtype == torch.bool and not out[-1].any()
 
 
+# the reference's apply_entry compiled as one program per config (the
+# same jnp ops as dispatching them one by one, without a small compile
+# for each)
 _REF_APPLY_ENTRY = jax.jit(jap.apply_entry)
 
 
@@ -139,7 +142,7 @@ def test_apply_entry_all_pools_matches_reference(opcode):
     index = np.full((G, P), 99, np.int32)
     live = rng.random((G, P)) < 0.8
     op = np.full((G, P), opcode, np.int32)
-    want_res, want = jap.apply_entry(res, op, a, b, c, index, now, live)
+    want_res, want = _REF_APPLY_ENTRY(res, op, a, b, c, index, now, live)
     t = [torch.from_numpy(x) for x in (op, a, b, c, index, now, live)]
     got_res, got = tap.apply_entry(convert.resources_to_torch(res, "cpu"), *t)
     _same(want_res, got_res, f"opcode {opcode}")

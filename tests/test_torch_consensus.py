@@ -10,6 +10,7 @@ stale lanes, with counters only and with every resource pool, with and
 without ``pool_budgets``.
 """
 
+import os
 from functools import partial
 
 import numpy as np
@@ -17,7 +18,11 @@ import pytest
 
 torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
-from torch_reference import release_jax_programs  # noqa: E402,F401
+from torch_reference import (  # noqa: E402,F401
+    LONG_RUNS,
+    SUITE_AHEAD,
+    release_jax_programs,
+)
 
 from copycat_tpu.ops import apply as jap  # noqa: E402
 from copycat_tpu.ops import consensus as jcons  # noqa: E402
@@ -140,9 +145,39 @@ def _reference_run(P, S, jcfg, ops):
     return run
 
 
-# The counters-only runs are kept for the file's life (a few MB): the
-# flow-control case steps the lease case's run (P=3, S=4) again.
-_COUNTER_RUNS = {}
+def _counter_config(S, lease=True):
+    return jcons.Config(append_window=S, applies_per_round=S,
+                        lease_gated_accept=lease,
+                        resource=jap.ResourceConfig.counters_only())
+
+
+def _all_pool_config(S, rc, budgets):
+    return jcons.Config(append_window=S, applies_per_round=S,
+                        pool_budgets=budgets, resource=rc)
+
+
+COUNTER_CASES = [(3, 4, True), (5, 16, True), (3, 16, False), (5, 4, False)]
+ALL_POOL_CASES = [
+    (3, 8, _RC_SMALL, None),
+    (3, 8, _RC_SMALL, (2, 3, 1, 2, 2, 1, 2, 1)),
+    (5, 4, _RC_SMALL, None),
+    (5, 8, _RC_SMALL, (1,) * 8),
+    (5, 16, jap.ResourceConfig(), (4, 6, 4, 6, 4, 4, 4, 4)),
+]
+
+def _run_key(P, S, jcfg, ops):
+    return ("consensus", P, S, jcfg, ops.tobytes())
+
+
+def _runs(cases):
+    return [(_run_key(P, S, jcfg, ops), _reference_run, (P, S, jcfg, ops))
+            for P, S, jcfg, ops in cases]
+
+
+_COUNTER_RUNS = [(P, S, _counter_config(S, lease), _OPS)
+                 for P, S, lease in COUNTER_CASES]
+_ALL_POOL_RUNS = [(P, S, _all_pool_config(S, rc, budgets), _ALL_OPS)
+                  for P, S, rc, budgets in ALL_POOL_CASES]
 
 
 def _step_side_by_side(P, S, jcfg, ops=_OPS, flow_control=False):
@@ -150,13 +185,8 @@ def _step_side_by_side(P, S, jcfg, ops=_OPS, flow_control=False):
     commands committed, the snapshot installs and the events drained."""
     tcfg = convert.config_to_torch(jcfg)._replace(
         ring_flow_control=flow_control)
-    if jcfg.resource == jap.ResourceConfig.counters_only():
-        k = (P, S, jcfg, ops.tobytes())
-        if k not in _COUNTER_RUNS:
-            _COUNTER_RUNS[k] = _reference_run(P, S, jcfg, ops)
-        run = _COUNTER_RUNS[k]
-    else:
-        run = _reference_run(P, S, jcfg, ops)
+    run = SUITE_AHEAD.get(_run_key(P, S, jcfg, ops), _reference_run, P, S,
+                          jcfg, ops)
     tstate = convert.state_to_torch(run[0], "cpu")
     installs = committed = events = 0
     for r, (sub, deliver, (fresh, cand), jout, jstate, installed) in \
@@ -178,27 +208,19 @@ def _step_side_by_side(P, S, jcfg, ops=_OPS, flow_control=False):
     return committed, installs, events
 
 
-@pytest.mark.parametrize("P,S,lease", [(3, 4, True), (5, 16, True),
-                                       (3, 16, False), (5, 4, False)])
+@pytest.mark.parametrize("P,S,lease", COUNTER_CASES)
 def test_step_matches_reference(P, S, lease):
-    _step_side_by_side(P, S, jcons.Config(
-        append_window=S, applies_per_round=S, lease_gated_accept=lease,
-        resource=jap.ResourceConfig.counters_only()))
+    _step_side_by_side(P, S, _counter_config(S, lease))
 
 
-@pytest.mark.parametrize("P,S,rc,budgets", [
-    (3, 8, _RC_SMALL, None),
-    (3, 8, _RC_SMALL, (2, 3, 1, 2, 2, 1, 2, 1)),
-    (5, 4, _RC_SMALL, None),
-    (5, 8, _RC_SMALL, (1,) * 8),
-    (5, 16, jap.ResourceConfig(), (4, 6, 4, 6, 4, 4, 4, 4)),
-], ids=["P3", "P3-budgets", "P5", "P5-tight", "P5-default-pools-mixed"])
+@pytest.mark.parametrize("P,S,rc,budgets", ALL_POOL_CASES,
+                         ids=["P3", "P3-budgets", "P5", "P5-tight",
+                              "P5-default-pools-mixed"])
 def test_step_all_pools_matches_reference(P, S, rc, budgets):
     """Every pool and event source, the sequential apply and the
     partitioned one, under partitions and snapshot installs."""
-    _, _, events = _step_side_by_side(P, S, jcons.Config(
-        append_window=S, applies_per_round=S, pool_budgets=budgets,
-        resource=rc), ops=_ALL_OPS)
+    _, _, events = _step_side_by_side(P, S, _all_pool_config(S, rc, budgets),
+                                      ops=_ALL_OPS)
     assert events > 0, "no session event was drained"
 
 
@@ -217,9 +239,46 @@ def test_ring_flow_control_changes_nothing_until_it_binds():
     """Where no lane's log would run L - 1 entries ahead of its apply,
     the default step (flow control on) is the reference's, leaf for
     leaf."""
-    _step_side_by_side(3, 4, jcons.Config(
-        append_window=4, applies_per_round=4,
-        resource=jap.ResourceConfig.counters_only()), flow_control=True)
+    _step_side_by_side(3, 4, _counter_config(4), flow_control=True)
+
+
+RING = dict(G=16, P=5, L=32, S=16, rounds=40)
+
+
+def _ring_config():
+    S = RING["S"]
+    return jcons.Config(append_window=S, applies_per_round=S,
+                        pool_budgets=bench.pool_budgets_for("mixed", S),
+                        timer_min=2, timer_max=4,
+                        resource=jap.ResourceConfig(multimap_slots=0,
+                                                    topic_slots=0))
+
+
+def _ring_reference_run():
+    """The reference's side of the flow-control case: its initial state,
+    then per round its state after the step and the snapshot installs,
+    and the round's two timer draws."""
+    G_, P, L_, S = RING["G"], RING["P"], RING["L"], RING["S"]
+    jcfg = _ring_config()
+    key = jax.random.PRNGKey(0)
+    key, init_key = jax.random.split(key)
+    jstate = jcons.init_state(G_, P, L_, init_key, jcfg)
+    run = [jstate]
+    jstep = jax.jit(partial(jcons.step, config=jcfg))
+    jinstall = jax.jit(partial(jcons.install_snapshots, config=jcfg))
+    sub = bench.mixed_submits(G_, S, "cpu")
+    jsub = jcons.Submits(*(np.ascontiguousarray(x.numpy()) for x in sub))
+    delivers = bench.nemesis_delivers(RING["rounds"], G_, P, "cpu")
+    for r in range(RING["rounds"]):
+        key, k = jax.random.split(key)
+        jstate, jout = jstep(jstate, jsub, delivers[r].numpy(), k)
+        jstate = jinstall(jstate, jout.stale, jout.leader)
+        key_t, key_c = jax.random.split(k)
+        fresh, cand = (torch.tensor(np.asarray(jax.random.randint(
+            kk, (G_, P), jcfg.timer_min, jcfg.timer_max)))
+            for kk in (key_t, key_c))
+        run.append((jstate, fresh, cand))
+    return run
 
 
 def test_ring_flow_control_keeps_replicas_equal():
@@ -230,34 +289,17 @@ def test_ring_flow_control_keeps_replicas_equal():
     the port with ``ring_flow_control`` off, equal to it every round —
     diverges; the port's default step keeps every replica pair at equal
     applied index equal, and keeps committing."""
-    G_, P, L_, S = 16, 5, 32, 16
-    jcfg = jcons.Config(append_window=S, applies_per_round=S,
-                        pool_budgets=bench.pool_budgets_for("mixed", S),
-                        timer_min=2, timer_max=4,
-                        resource=jap.ResourceConfig(multimap_slots=0,
-                                                    topic_slots=0))
-    ref_mode = convert.config_to_torch(jcfg)
+    G_, P, S = RING["G"], RING["P"], RING["S"]
+    run = SUITE_AHEAD.get(("consensus", "ring"), _ring_reference_run)
+    ref_mode = convert.config_to_torch(_ring_config())
     fixed = ref_mode._replace(ring_flow_control=True)
-    key = jax.random.PRNGKey(0)
-    key, init_key = jax.random.split(key)
-    jstate = jcons.init_state(G_, P, L_, init_key, jcfg)
-    states = {cfg: convert.state_to_torch(jstate, "cpu")
+    states = {cfg: convert.state_to_torch(run[0], "cpu")
               for cfg in (ref_mode, fixed)}
-    jstep = jax.jit(partial(jcons.step, config=jcfg))
-    jinstall = jax.jit(partial(jcons.install_snapshots, config=jcfg))
     sub = bench.mixed_submits(G_, S, "cpu")
-    jsub = jcons.Submits(*(np.ascontiguousarray(x.numpy()) for x in sub))
-    delivers = bench.nemesis_delivers(40, G_, P, "cpu")
+    delivers = bench.nemesis_delivers(RING["rounds"], G_, P, "cpu")
     diverged = {cfg: 0 for cfg in states}
     applied0 = states[fixed].applied_index.amax(dim=1)
-    for r in range(40):
-        key, k = jax.random.split(key)
-        jstate, jout = jstep(jstate, jsub, delivers[r].numpy(), k)
-        jstate = jinstall(jstate, jout.stale, jout.leader)
-        key_t, key_c = jax.random.split(k)
-        fresh, cand = (torch.tensor(np.asarray(jax.random.randint(
-            kk, (G_, P), jcfg.timer_min, jcfg.timer_max)))
-            for kk in (key_t, key_c))
+    for r, (jstate, fresh, cand) in enumerate(run[1:]):
         for cfg, st in states.items():
             st, out = tcons.step(st, sub, delivers[r], fresh, cand, cfg)
             states[cfg] = tcons.install_snapshots(st, out.stale, out.leader,
@@ -269,6 +311,20 @@ def test_ring_flow_control_keeps_replicas_equal():
     assert diverged[fixed] == 0
     committed = states[fixed].applied_index.amax(dim=1) - applied0
     assert (committed > 0).all()
+
+
+# The reference's runs (a few MB each) never depend on the port's side:
+# a session that holds these tests computes them ahead, from its first
+# port file that runs the reference (``torch_reference.LONG_RUNS``); the
+# flow-control case steps the lease case's run (P=3, S=4) again.
+_FILE = os.path.basename(__file__)
+LONG_RUNS[f"{_FILE}::test_step_matches_reference"] = _runs(_COUNTER_RUNS)
+LONG_RUNS[f"{_FILE}::test_step_all_pools_matches_reference"] = _runs(
+    _ALL_POOL_RUNS)
+LONG_RUNS[f"{_FILE}::test_ring_flow_control_changes_nothing_until_it_binds"] \
+    = _runs(_COUNTER_RUNS[:1])
+LONG_RUNS[f"{_FILE}::test_ring_flow_control_keeps_replicas_equal"] = [
+    (("consensus", "ring"), _ring_reference_run, ())]
 
 
 def test_a_lane_with_a_full_ring_does_not_stand_for_election():

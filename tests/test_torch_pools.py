@@ -12,12 +12,19 @@ events than the ring holds) and ``apply_window`` (budgets ``(1,)*8``,
 mixed and ``(A,)*8``) are held the same way.
 """
 
+import os
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
-from torch_reference import release_jax_programs  # noqa: E402,F401
+from torch_reference import (  # noqa: E402,F401
+    LONG_RUNS,
+    SUITE_AHEAD,
+    Ahead,
+    release_jax_programs,
+)
 import jax.numpy as jnp  # noqa: E402
 
 from copycat_tpu.ops import apply as jap  # noqa: E402
@@ -170,10 +177,16 @@ def _args(rng, opcode, now):
     return op, a, b, c, index, now, live
 
 
+# each pool's reference kernel compiled as one program (the same jnp ops
+# as dispatching them one by one, without a small compile for each)
+REF_KERNELS = {name: jax.jit(pool[4]) for name, pool in POOLS.items()}
+
+
 @pytest.mark.parametrize("pool,opcode", CASES,
                          ids=[f"{p}-{o}" for p, o in CASES])
 def test_pool_kernel_matches_reference(pool, opcode):
-    pid, _, _, build, ref_kernel = POOLS[pool]
+    pid, _, _, build, _ = POOLS[pool]
+    ref_kernel = REF_KERNELS[pool]
     rng = np.random.default_rng(CASES.index((pool, opcode)))
     now = _i(rng, 5, 15, (G, P))
     want_st = build(rng, now)
@@ -253,22 +266,37 @@ RC_SMALL = jap.ResourceConfig(map_slots=4, set_slots=3, queue_slots=3,
                               wait_slots=3, listener_slots=3, event_slots=4,
                               multimap_slots=4, topic_slots=3)
 A_WIN = 8
+WINDOW_BUDGETS = [(1,) * 8, (2, 3, 1, 2, 2, 1, 2, 1), (A_WIN,) * 8]
+
+# The reference's apply_window runs: each budget tuple compiles its own
+# program. The full budgets' compiles for tens of seconds, so a session
+# that holds the case starts it with its first port file that runs the
+# reference (``torch_reference.LONG_RUNS``); the other two start ahead,
+# beside the rest of this file, when its first test runs.
+AHEAD = Ahead()
+FULL = WINDOW_BUDGETS[-1]
 
 
-@pytest.mark.parametrize("budgets", [(1,) * 8, (2, 3, 1, 2, 2, 1, 2, 1),
-                                     (A_WIN,) * 8],
-                         ids=["tight", "mixed", "full"])
-def test_apply_window_matches_reference(budgets):
-    """Eight rounds of windows drawn from the whole catalog, each a
-    committed prefix of random length: state, results and the admitted
-    mask equal the reference's every round."""
+@pytest.fixture(scope="module", autouse=True)
+def reference_windows_ahead(release_jax_programs):
+    for budgets in WINDOW_BUDGETS[:-1]:
+        AHEAD.start(budgets, _reference_windows, budgets)
+    yield
+    AHEAD.close()
+
+
+def _reference_windows(budgets):
+    """The reference's side of the apply_window case: eight rounds of
+    windows drawn from the whole catalog, each a committed prefix of
+    random length, the next round's indices following what the reference
+    admitted; per round the window's fields and the reference's resource
+    state, results and admitted mask after it."""
     rng = np.random.default_rng(sum(budgets))
     ref = jax.jit(jap.apply_window, static_argnums=(8,))
     jres = jap.init_resources(G, P, RC_SMALL)
-    tres = convert.resources_to_torch(jres, "cpu")
     shape = (G, P, A_WIN)
     base = np.zeros((G, P), np.int32)
-    deferred = 0
+    rounds = []
     for r in range(8):
         op = rng.choice(OPCODES, shape).astype(np.int32)
         a, b = _i(rng, -1, 4, shape), _i(rng, -1, 4, shape)
@@ -278,10 +306,32 @@ def test_apply_window_matches_reference(budgets):
         do = np.arange(A_WIN) < _i(rng, 0, A_WIN + 1, (G, P))[..., None]
         fields = (op, a, b, c, index, now, do)
         jres, jresult, jadm = ref(jres, *fields, budgets)
+        rounds.append((fields, jres, jresult, jadm))
+        base = base + np.asarray(jadm).sum(-1, dtype=np.int32)
+    return rounds
+
+
+LONG_RUNS[f"{os.path.basename(__file__)}::"
+          "test_apply_window_matches_reference"] = [
+    (("apply_window", FULL), _reference_windows, (FULL,))]
+
+
+@pytest.mark.parametrize("budgets", WINDOW_BUDGETS,
+                         ids=["tight", "mixed", "full"])
+def test_apply_window_matches_reference(budgets):
+    """Eight rounds of windows drawn from the whole catalog, each a
+    committed prefix of random length: state, results and the admitted
+    mask equal the reference's every round."""
+    rounds = (SUITE_AHEAD.get(("apply_window", FULL), _reference_windows,
+                              FULL) if budgets == FULL
+              else AHEAD.get(budgets, _reference_windows, budgets))
+    tres = convert.resources_to_torch(jap.init_resources(G, P, RC_SMALL),
+                                      "cpu")
+    deferred = 0
+    for r, (fields, jres, jresult, jadm) in enumerate(rounds):
         tres, tresult, tadm = tap.apply_window(
             tres, *(torch.from_numpy(x) for x in fields), budgets)
         _same((tuple(jres), jresult, jadm), (tuple(tres), tresult, tadm),
               f"budgets {budgets} round {r}")
-        deferred += int((do & ~np.asarray(jadm)).sum())
-        base = base + np.asarray(jadm).sum(-1, dtype=np.int32)
+        deferred += int((fields[-1] & ~np.asarray(jadm)).sum())
     assert (deferred > 0) == (budgets != (A_WIN,) * 8)

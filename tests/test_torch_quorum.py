@@ -26,6 +26,8 @@ tests at the end, which need no JAX (the reference is imported only where
 it is used), so they run where the card is.
 """
 
+from functools import lru_cache
+
 import numpy as np
 import pytest
 
@@ -43,6 +45,16 @@ def ref():
     pytest.importorskip("jax")
     from copycat_tpu.ops import consensus, pallas_kernels
     return consensus, pallas_kernels
+
+
+@lru_cache(maxsize=None)
+def _compiled(expr):
+    """A reference expression (``_ref_admit``, ``_ref_ack``) compiled as
+    one program per input shape, the modules and the quorum static: the
+    same jnp ops as dispatching them one by one, without a small compile
+    for each."""
+    import jax
+    return jax.jit(expr, static_argnums=(0, 2))
 
 
 def _torch(case: dict) -> dict:
@@ -132,7 +144,7 @@ def _ref_ack(ref, c: dict, quorum: int, view=None):
     l_commit = jnp.where(advance, cand_commit, l_commit)
     return dict(l_match=l_match, l_next=l_next, leader_stale=leader_stale,
                 lease=lease_g, max_ack_term=max_ack_term,
-                l_commit=l_commit), np.asarray(cand_commit)
+                l_commit=l_commit), cand_commit
 
 
 def _assert_equal(got, want: dict, int64=()):
@@ -147,7 +159,7 @@ def _assert_equal(got, want: dict, int64=()):
 def test_admit_submits_matches_reference(ref, P):
     quorum = P // 2 + 1
     c = cases.admit_case(np.random.default_rng(P), G, P, S, L)
-    want = _ref_admit(ref, c, quorum)
+    want = _compiled(_ref_admit)(ref, c, quorum)
     got = kernels.admit_submits(**_torch(c), quorum=quorum, L=L)
     # the slot is int64 in the port: scatter takes int64 indices
     _assert_equal(got, want, int64=("slot",))
@@ -163,7 +175,8 @@ def test_admit_submits_matches_reference(ref, P):
 def test_ack_commit_matches_reference(ref, P):
     quorum = P // 2 + 1
     c = cases.ack_case(np.random.default_rng(10 + P), G, P, L)
-    want, cand = _ref_ack(ref, c, quorum)
+    want, cand = _compiled(_ref_ack)(ref, c, quorum)
+    cand = np.asarray(cand)
     got = kernels.ack_commit(**_torch(c), quorum=quorum)
     _assert_equal(got, want)
     l_last = c["l_last"]
@@ -188,13 +201,13 @@ def test_masked_phases_match_reference(ref, P):
     rng = np.random.default_rng(20 + P)
     a = cases.admit_case(rng, G, P, S, L)
     a_view = cases.member_views(rng, a["lead"], P)
-    want = _ref_admit(ref, a, 0, a_view)
+    want = _compiled(_ref_admit)(ref, a, 0, a_view)
     got = kernels.admit_submits(**_torch(a), quorum=P // 2 + 1, L=L,
                                 view=torch.from_numpy(a_view))
     _assert_equal(got, want, int64=("slot",))
     k = cases.ack_case(rng, G, P, L)
     k_view = cases.member_views(rng, k["lead"], P)
-    want, cand = _ref_ack(ref, k, 0, k_view)
+    want, _ = _compiled(_ref_ack)(ref, k, 0, k_view)
     got = kernels.ack_commit(**_torch(k), quorum=P // 2 + 1,
                              view=torch.from_numpy(k_view))
     _assert_equal(got, want)

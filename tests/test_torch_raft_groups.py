@@ -21,7 +21,11 @@ import pytest
 
 torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
-from torch_reference import release_jax_programs  # noqa: E402,F401
+from torch_reference import (  # noqa: E402,F401
+    Ahead,
+    release_jax_programs,
+    warm_reference,
+)
 
 from copycat_tpu.models import RaftGroups as JaxRaftGroups  # noqa: E402
 from copycat_tpu.ops import apply as jap  # noqa: E402
@@ -41,6 +45,19 @@ class ReferenceDrawnGroups(torch_reference.ReferenceDrawnGroups):
 
     def __init__(self, seed=0, jcfg=JCFG):
         super().__init__(G, P, L, S, jcfg, seed=seed)
+
+
+# The reference's programs for the file's two configs (and the fused
+# rounds its step_rounds case runs) compile ahead, beside the first tests.
+AHEAD = Ahead()
+
+
+@pytest.fixture(scope="module", autouse=True)
+def programs_ahead(release_jax_programs):
+    AHEAD.start("counters", warm_reference, G, P, L, S, JCFG, 0, (8,))
+    AHEAD.start("all pools", warm_reference, G, P, L, S, JaxConfig())
+    yield
+    AHEAD.close()
 
 
 def _isolate(victims):

@@ -68,12 +68,30 @@ from copycat_tpu_torch.resource.consistency import Consistency  # noqa: E402
 from copycat_tpu_torch.server.log import Storage, StorageLevel  # noqa: E402
 
 from helpers import async_test  # noqa: E402
-from torch_reference import release_jax_programs  # noqa: E402,F401
+from torch_reference import (  # noqa: E402,F401
+    Ahead,
+    release_jax_programs,
+    warm_reference_engine,
+)
 
 EXECUTORS = ("cpu", "tpu")
 _PORTS = itertools.count(52_000)
 _POOLS = ("map_slots", "set_slots", "queue_slots", "wait_slots",
           "listener_slots", "event_slots", "multimap_slots", "topic_slots")
+
+# the reference server's device-engine programs (its differential case
+# runs three reference servers) compile ahead, beside the first tests
+AHEAD = Ahead()
+
+
+@pytest.fixture(scope="module", autouse=True)
+def programs_ahead(release_jax_programs):
+    from copycat_tpu.manager.device_executor import (
+        DeviceEngineConfig as RDeviceEngineConfig)
+    AHEAD.start("engine", warm_reference_engine,
+                RDeviceEngineConfig(capacity=8, num_peers=3, log_slots=32))
+    yield
+    AHEAD.close()
 
 
 def next_ports(n):

@@ -15,6 +15,9 @@ reference imports it.
 """
 
 import gc
+import multiprocessing
+import os
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 import jax
 import numpy as np
@@ -26,13 +29,116 @@ from copycat_tpu_torch.models import RaftGroups
 
 
 @pytest.fixture(scope="module", autouse=True)
-def release_jax_programs():
+def release_jax_programs(request):
     """At the end of the test file: drop every compiled JAX program, so
     their executables and memory mappings are released (later files
-    compile again, or read the persistent cache)."""
+    compile again, or read the persistent cache). At its start: the
+    session's long reference runs (:data:`LONG_RUNS`), once."""
+    start_long_runs(request.session)
     yield
     jax.clear_caches()
     gc.collect()
+
+
+class Ahead:
+    """Reference computations started ahead, in background workers.
+
+    Most of a differential test's time on the CPU is the reference
+    compiling its programs. A test file whose reference side never
+    depends on the port's (the same seeded inputs go to both) starts
+    those computations here (:meth:`start`, from a module fixture or
+    :func:`start_long_runs`, never while the module is imported): in
+    threads (XLA compiles with the GIL released, and a thread shares the
+    process's compiled programs) or, with ``processes``, in worker
+    processes (no GIL shared at all; the results come back pickled). A
+    test takes its result with :meth:`get`, which waits for it, or
+    computes it in the test's own thread when it was never started or
+    its worker could not run it. :meth:`close` waits for every
+    computation."""
+
+    def __init__(self, workers: int | None = None, processes: bool = False):
+        self._workers = workers or max(1, min(4, os.cpu_count() or 1))
+        self._processes = processes
+        self._pool = None
+        self._futures = {}
+
+    def start(self, key, fn, *args) -> None:
+        if key in self._futures:
+            return
+        try:
+            if self._pool is None:
+                self._pool = (ProcessPoolExecutor(
+                    self._workers, mp_context=multiprocessing.get_context(
+                        "spawn")) if self._processes
+                    else ThreadPoolExecutor(self._workers,
+                                            thread_name_prefix="ahead"))
+            self._futures[key] = self._pool.submit(fn, *args)
+        except (OSError, RuntimeError):   # no workers here: get computes
+            pass
+
+    def get(self, key, fn, *args):
+        future = self._futures.get(key)
+        if future is not None:
+            try:
+                return future.result()
+            except Exception:   # noqa: BLE001 — recomputed (and raised) here
+                pass
+        return fn(*args)
+
+    def close(self) -> None:
+        if self._pool is not None:
+            self._pool.shutdown(wait=True)
+        self._pool, self._futures = None, {}
+
+
+def warm_reference(groups, peers, log_slots, submit_slots, config, seed=0,
+                   fused=()):
+    """Compile the reference's programs for one engine shape and config
+    (the reference shares them between every ``RaftGroups`` of a config),
+    by running a throwaway engine: its step (the leader election), its
+    query program (one value read: every config has the value pool) and the
+    fused ``step_rounds(n)`` program for each ``n`` of ``fused``. Meant
+    for :class:`Ahead`: a file's engines then find the programs built."""
+    from copycat_tpu.models import RaftGroups as JaxRaftGroups
+    from copycat_tpu.ops.apply import OP_VALUE_GET
+    rg = JaxRaftGroups(groups, peers, log_slots=log_slots,
+                       submit_slots=submit_slots, seed=seed, config=config)
+    rg.wait_for_leaders()
+    rg.serve_query(0, OP_VALUE_GET)
+    for n in fused:
+        rg.step_rounds(n)
+
+
+def warm_reference_engine(engine_config):
+    """:func:`warm_reference` for the reference server's device engine: the
+    engine's own warm-up (its step) and one vector read (its query
+    program)."""
+    from copycat_tpu.manager.device_executor import DeviceEngine
+    from copycat_tpu.ops.apply import OP_VALUE_GET
+    engine = DeviceEngine(engine_config)
+    engine._ensure()
+    engine.run_query_vector([0], [OP_VALUE_GET], [0], [0], [0])
+
+
+#: Reference runs that compile for seconds each, by the test function that
+#: takes them (``"file.py::test_name"``): ``[(key, function, args)]``,
+#: registered when the file is imported (the function must be a module
+#: attribute: a worker process imports it). When the session holds the
+#: test, the first port test file that runs the reference starts them in
+#: :data:`SUITE_AHEAD`'s worker processes, so they are done by the time
+#: the test comes, without taking the GIL from the tests meanwhile; it
+#: takes each result with ``SUITE_AHEAD.get``.
+LONG_RUNS: dict = {}
+SUITE_AHEAD = Ahead(workers=2, processes=True)
+
+
+def start_long_runs(session) -> None:
+    tests = {f"{item.path.name}::{getattr(item, 'originalname', item.name)}"
+             for item in session.items}
+    for test, runs in LONG_RUNS.items():
+        if test in tests:
+            for key, fn, args in runs:
+                SUITE_AHEAD.start(key, fn, *args)
 
 
 class ReferenceDrawnGroups(RaftGroups):
