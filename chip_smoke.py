@@ -159,7 +159,31 @@ Phases, each of which raises (and so exits non-zero) on failure:
     fused kernel per engine round and none of the tally; both fused
     kernels against their plain versions on each scenario's last step;
     ops/s (reads/s), p50/p99 ms, engine rounds and wall time printed; a
-    profiler window of every engine round of an spi run of two bursts.
+    profiler window of every engine round of an spi run of two bursts;
+24. operator — one port ``AtomixServer(executor="tpu")`` over loopback
+    TCP with its stats listener and disk storage, the spi engine
+    (``DeviceEngineConfig(capacity=1,024, num_peers=3, log_slots=16,
+    submit_slots=4)``, counters only) with device telemetry, and one
+    ``AtomixClient``: 1,000 ``DistributedAtomicLong``, a burst of
+    ``add_and_get(1)`` on each, one under ``SlowDiskNemesis(0.02)``, one
+    with a ``LoopHoldNemesis(0.15)`` hold, one under
+    ``utils.profiling.trace``, and a traced one on 100 of them, every
+    answer checked; then the port's CLI in this process
+    (``copycat_tpu_torch.cli.main``) on the stats listener: ``stats
+    --what all|flight|health``, ``doctor``, ``trace``, ``timeline``,
+    ``top --once``, ``profile`` and ``profile --device``, each exiting 0,
+    the flight ring showing both faults and the device profile both fused
+    kernels; one launch of each fused kernel per engine round and none of
+    the tally, both against their plain versions on the last step;
+25. deploy — ``python -m copycat_tpu_torch.bench --scenario
+    compartment`` in its own interpreter, at the reference's defaults: a
+    supervised topology of OS processes (3 members × 4
+    groups serving the counter machine on the host, ingress tiers 1, 2
+    and 4), 8 clients × 600 zipfian writes a burst, 3 bursts, disk
+    storage, ``kill -9`` of a member and an ingress on the widest tier;
+    committed ops/s, the mean ingress queue, proxy retries and acked /
+    in-doubt / lost writes per width (host numbers, taken on the card's
+    machine); no acknowledged write lost, both corpses restarted.
 
 The profile windows' summaries read the window's Chrome trace back
 through ``copycat_tpu_torch/utils/profiling.py``. Each phase prints its
@@ -2315,6 +2339,297 @@ def phase_public_api(ks: dict, card: str) -> tuple[dict, dict, dict]:
     return launches, worst, out
 
 
+# the operator phase: the spi engine (PERF.md §4) on disk storage, served
+# over loopback TCP with the stats listener, read through the port's CLI
+OPERATOR_ENGINE = dict(capacity=1_024, num_peers=3, log_slots=16,
+                       submit_slots=4)
+OPERATOR_LONGS, OPERATOR_TRACED = 1_000, 100
+OPERATOR_DIR = pathlib.Path(__file__).resolve().parent / "_smoke_operator"
+
+
+def run_verb(argv: list) -> tuple[int, str, float]:
+    """``python -m copycat_tpu_torch.cli <argv>`` in this process: its exit
+    code, standard output and wall seconds (each verb runs its own event
+    loop, so call this off the server's loop)."""
+    import io
+
+    from copycat_tpu_torch import cli
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            cli.main(argv)
+        code = 0
+    except SystemExit as exc:
+        code = 0 if exc.code is None else exc.code
+    return code, out.getvalue(), time.perf_counter() - t0
+
+
+def operator_verbs(stats: str, trace_dir: str) -> list:
+    """The operator's reads of one server, each an argv of the CLI."""
+    return [["stats", stats, "--what", "all"],
+            ["stats", stats, "--what", "flight"],
+            ["stats", stats, "--what", "health"],
+            ["doctor", stats], ["trace", stats],
+            ["timeline", stats, "--last", "60"], ["top", stats, "--once"],
+            ["profile", stats],
+            ["profile", "--device", trace_dir, "--top", "1000"]]
+
+
+async def operator_traffic(device, trace_dir: str, log_dir: str) -> dict:
+    """One port ``AtomixServer(executor="tpu")`` over loopback TCP with
+    its stats listener, the spi engine with device telemetry, disk
+    storage; one ``AtomixClient``: 1,000 ``DistributedAtomicLong``, a
+    burst of ``add_and_get(1)`` on each plain, one under
+    ``SlowDiskNemesis(0.02)``, one with a ``LoopHoldNemesis(0.15)`` hold,
+    one under ``utils.profiling.trace`` (the card's lanes) and a traced
+    one on 100 of them; every answer checked against its count. Then
+    every operator verb of the port's CLI against the stats listener.
+    Returns the burst rates, the verbs' outputs and walls, and the
+    engine."""
+    from copycat_tpu_torch.atomic import DistributedAtomicLong
+    from copycat_tpu_torch.deploy.topology import allocate_ports
+    from copycat_tpu_torch.io.tcp import TcpTransport
+    from copycat_tpu_torch.io.transport import Address
+    from copycat_tpu_torch.manager.atomix import AtomixClient, AtomixServer
+    from copycat_tpu_torch.manager.device_executor import DeviceEngineConfig
+    from copycat_tpu_torch.ops import apply as ap
+    from copycat_tpu_torch.server.log import Storage, StorageLevel
+    from copycat_tpu_torch.testing.nemesis import (LoopHoldNemesis,
+                                                   SlowDiskNemesis)
+    from copycat_tpu_torch.utils import tracing
+    from copycat_tpu_torch.utils.profiling import trace
+
+    port, = allocate_ports(1)
+    addr = Address("127.0.0.1", port)
+    server = AtomixServer(
+        addr, [addr], TcpTransport(), election_timeout=0.5,
+        heartbeat_interval=0.1, session_timeout=60.0, executor="tpu",
+        stats_port=0, storage=Storage(StorageLevel.DISK, directory=log_dir),
+        engine_config=DeviceEngineConfig(
+            **OPERATOR_ENGINE, resource=ap.ResourceConfig.counters_only(),
+            telemetry=True, device=device))
+    await server.open()
+    client = AtomixClient([addr], TcpTransport(), session_timeout=60.0)
+    await client.open()
+    raft = server.server
+    try:
+        longs = await each(client.get(f"op{i}", DistributedAtomicLong)
+                           for i in range(OPERATOR_LONGS))
+        rates = {}
+
+        async def burst(name: str, want: int, n: int = OPERATOR_LONGS,
+                        during=None) -> None:
+            t0 = time.perf_counter()
+            calls = asyncio.gather(*(c.add_and_get(1) for c in longs[:n]))
+            if during is not None:
+                during()
+            got = await calls
+            rates[name] = n / (time.perf_counter() - t0)
+            bad = [i for i, v in enumerate(got) if v != want]
+            if bad:
+                raise AssertionError(
+                    f"operator {name}: {len(bad)} answers differ from "
+                    f"{want}, first op{bad[0]} -> {got[bad[0]]}")
+
+        await burst("plain", 1)
+        slow = SlowDiskNemesis(raft, delay_s=0.02)
+        slow.install()
+        try:
+            await burst("slow_disk", 2)
+        finally:
+            slow.remove()
+        hold = LoopHoldNemesis(raft, delay_s=0.15)
+        await burst("loop_hold", 3, during=hold.inject)
+        with trace(trace_dir):
+            await burst("profiled", 4)
+        tracing.TRACER.clear()
+        tracing.enable()
+        try:
+            await burst("traced", 5, n=OPERATOR_TRACED)
+        finally:
+            tracing.disable()
+        finals = await each(c.get() for c in longs)
+        want = [5] * OPERATOR_TRACED + [4] * (OPERATOR_LONGS
+                                              - OPERATOR_TRACED)
+        if finals != want:
+            raise AssertionError("operator: a long does not read its "
+                                 "bursts")
+        stats = f"127.0.0.1:{server.stats.port}"
+        verbs = []
+        for argv in operator_verbs(stats, trace_dir):
+            verbs.append((argv, *await asyncio.to_thread(run_verb, argv)))
+        return dict(rates=rates, verbs=verbs,
+                    engine=raft.state_machine.device_engine)
+    finally:
+        try:
+            await asyncio.wait_for(client.close(), 10)
+        finally:
+            await asyncio.wait_for(server.close(), 10)
+
+
+def check_verbs(verbs: list) -> None:
+    """Every verb exited 0; the flight ring holds both injected faults;
+    the device profile names both fused kernels."""
+    for argv, code, out, _ in verbs:
+        if code != 0:
+            raise AssertionError(f"operator: `{' '.join(argv)}` exited "
+                                 f"{code}: {out[-400:]}")
+    flight = next(out for argv, _, out, _ in verbs if argv[-1] == "flight")
+    for fault in ("fault=slow_disk", "fault=loop_hold"):
+        if fault not in flight:
+            raise AssertionError(f"operator: no {fault} in the flight "
+                                 f"ring:\n{flight[-600:]}")
+    device = next(out for argv, _, out, _ in verbs if "--device" in argv)
+    for name in STEP_FNS:
+        if name not in device:
+            raise AssertionError(f"operator: profile --device lists no "
+                                 f"{name} kernel:\n{device[:600]}")
+
+
+def phase_operator(ks: dict, card: str) -> tuple[dict, dict, dict]:
+    """The operator entry points against a device server on the card
+    (:func:`operator_traffic`, :func:`check_verbs`). Around the whole
+    phase the kernel counts are zeroed and read: one launch of each fused
+    kernel per engine round and none of the tally; the last engine
+    step's arguments hold both against their plain versions."""
+    import shutil
+
+    from copycat_tpu_torch.ops import consensus as cons
+    from copycat_tpu_torch.ops import kernels
+
+    trace_dir, log_dir = OPERATOR_DIR / "traces", OPERATOR_DIR / "log"
+    shutil.rmtree(OPERATOR_DIR, ignore_errors=True)
+    log_dir.mkdir(parents=True)
+    try:
+        zero_counts(ks)
+        t0 = time.perf_counter()
+        with recording(cons, STEP_FNS) as seen:
+            out = asyncio.run(operator_traffic("cuda", str(trace_dir),
+                                               str(log_dir)))
+        wall = time.perf_counter() - t0
+        launched = counts(ks)
+    finally:
+        shutil.rmtree(OPERATOR_DIR, ignore_errors=True)
+    check_verbs(out["verbs"])
+    rounds = out["engine"]._groups.rounds
+    if launched["kth_largest"] or any(launched[n] != rounds
+                                      for n in STEP_FNS):
+        raise AssertionError(f"operator: launches {launched} in {rounds} "
+                             "engine rounds")
+    errs = step_fns(kernels, dict(seen), "an operator engine's step")[1]
+    for argv, code, text, secs in out["verbs"]:
+        say(f"operator: `copycat-tpu {' '.join(argv)}` exit {code} in "
+            f"{secs:.3f} s, {len(text.splitlines())} lines")
+        if "--device" in argv:
+            for row in text.splitlines():
+                if any(name in row for name in STEP_FNS):
+                    say(f"operator: profile --device row: {row.strip()}")
+    rates = ", ".join(f"{name} {v:.1f}" for name, v in out["rates"].items())
+    per_round = {n: launched[n] / rounds for n in launched}
+    say(f"operator: bursts of add_and_get (ops/s): {rates}; {rounds} engine "
+        f"rounds, launches per round {per_round}; {wall:.1f} s wall, on "
+        f"{card}; every answer right, both faults in the flight ring, both "
+        "fused kernels in the device profile and equal to their plain "
+        "versions on the last step")
+    return launched, errs, dict(rates=out["rates"], rounds=rounds,
+                                wall_s=wall)
+
+
+DEPLOY_DIR = pathlib.Path(__file__).resolve().parent / "_smoke_deploy"
+DEPLOY_LIMIT_S = 420       # the scenario takes about a minute on the card's host
+
+
+def run_deploy_bench(limit_s: float = DEPLOY_LIMIT_S) -> tuple[dict, dict]:
+    """``python -m copycat_tpu_torch.bench --scenario compartment
+    --metrics-json ...`` in its own interpreter, as an operator runs it
+    (the bench probes the card first): its result line and its artifact.
+    The topology's directories live under ``DEPLOY_DIR`` (its
+    ``TMPDIR``), deleted after. Past ``limit_s`` the bench gets SIGINT,
+    which tears the supervised topology down, and the phase fails."""
+    import os
+    import shutil
+    import signal
+    import subprocess
+
+    shutil.rmtree(DEPLOY_DIR, ignore_errors=True)
+    DEPLOY_DIR.mkdir(parents=True)
+    artifact, log = DEPLOY_DIR / "compartment.json", DEPLOY_DIR / "bench.log"
+    root = str(pathlib.Path(__file__).resolve().parent)
+    env = dict(os.environ, TMPDIR=str(DEPLOY_DIR), PYTHONPATH=os.pathsep.join(
+        p for p in (root, os.environ.get("PYTHONPATH")) if p))
+    try:
+        with open(log, "wb") as err:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "copycat_tpu_torch.bench",
+                 "--scenario", "compartment", "--metrics-json",
+                 str(artifact)], cwd=root, env=env,
+                stdout=subprocess.PIPE, stderr=err)
+            try:
+                out, _ = proc.communicate(timeout=limit_s)
+            except subprocess.TimeoutExpired:
+                proc.send_signal(signal.SIGINT)
+                try:
+                    proc.communicate(timeout=60)
+                finally:
+                    if proc.poll() is None:
+                        proc.kill()
+                        proc.wait()
+                raise AssertionError(
+                    f"deploy: compartment ran past {limit_s} s:\n"
+                    + log.read_text(errors="replace")[-3000:])
+        if proc.returncode != 0:
+            raise AssertionError(
+                f"deploy: compartment exited {proc.returncode}:\n"
+                + log.read_text(errors="replace")[-3000:])
+        for line in log.read_text(errors="replace").splitlines():
+            if line.startswith(("bench[compartment]", "supervisor:")):
+                say(f"deploy: {line}")
+        return (json.loads(out.decode().strip().splitlines()[-1]),
+                json.loads(artifact.read_text()))
+    finally:
+        shutil.rmtree(DEPLOY_DIR, ignore_errors=True)
+
+
+def phase_deploy(card: str) -> dict:
+    """The bench's ``compartment`` scenario at the reference's defaults
+    (:func:`run_deploy_bench`): a supervised topology of OS processes (3
+    members × 4 groups serving the counter machine on the host, ingress
+    tiers 1, 2 and 4), 8 clients × 600 ops a burst, 3 bursts, disk
+    storage, the kill -9 nemesis on the widest tier. Fails unless no
+    acknowledged write is lost at any width and both corpses restart.
+    Host numbers, taken on the card's machine."""
+    t0 = time.perf_counter()
+    result, artifact = run_deploy_bench()
+    wall = time.perf_counter() - t0
+    if artifact["meta"]["host"]["device"] != "cuda":
+        raise AssertionError("deploy: the bench did not probe the card")
+    for w in result["widths"]:
+        if w["lost_acked_writes"]:
+            raise AssertionError(f"deploy: width {w['width']} lost "
+                                 f"{w['lost_acked_writes']} acked writes")
+        rows = [a for a in w["ingress_attribution"].values() if a]
+        queue = [a["latency.ingress_queue_ms"]["mean"] for a in rows
+                 if a.get("latency.ingress_queue_ms")]
+        retries = sum(a["ingress.proxy_retries"] or 0 for a in rows)
+        say(f"deploy width {w['width']}: {w['ops_per_sec']:.1f} committed "
+            f"ops/s (best of {w['reps_n']}, reps {w['reps_min']:.1f}.."
+            f"{w['reps_max']:.1f}), mean ingress queue "
+            f"{np.mean(queue) if queue else float('nan'):.3f} ms, proxy "
+            f"retries {retries}, acked {w['acked_ops']} / in doubt "
+            f"{w['indeterminate_ops']} / lost {w['lost_acked_writes']} "
+            f"(host numbers, on the machine of {card})")
+    nemesis = result.get("nemesis")
+    if not nemesis or not nemesis["restored"] or min(
+            nemesis["restarts"].values()) < 1:
+        raise AssertionError(f"deploy: the nemesis corpses did not both "
+                             f"restart: {nemesis}")
+    say(f"deploy: nemesis {json.dumps(nemesis)}; {wall:.1f} s wall "
+        "(the bench's probe of the card included)")
+    say("deploy: " + json.dumps(result))
+    return dict(result=result, wall_s=wall)
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card", file=sys.stderr)
@@ -2424,6 +2739,10 @@ def main() -> int:
     public_launches, public_errs, _ = phase_public_api(ks, card)
     launches.update(public_launches)
     lap("public_api")
+    launches["operator"], operator_errs, _ = phase_operator(ks, card)
+    lap("operator")
+    phase_deploy(card)
+    lap("deploy")
     say(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f}s")
     deep_errs = verdicts["deep verdict"]["max_abs_err"]
@@ -2450,13 +2769,16 @@ def main() -> int:
         "launches_spi": launches["spi"][name],
         "launches_readmix": launches["readmix"][name],
         "launches_apply": launches["apply"][name],
+        "launches_operator": launches["operator"][name],
         "max_abs_err": max(errs[name], facade_errs.get(name, 0),
                            deep_errs.get(name, 0), server_errs.get(name, 0),
-                           public_errs.get(name, 0)),
+                           public_errs.get(name, 0),
+                           operator_errs.get(name, 0)),
         "max_abs_err_facades": facade_errs.get(name),
         "max_abs_err_deep_verdict": deep_errs.get(name),
         "max_abs_err_server": server_errs.get(name),
         "max_abs_err_public_api": public_errs.get(name),
+        "max_abs_err_operator": operator_errs.get(name),
         **timing[name],
         "mixed_shape": mixed_timing.get(name),
     } for name, src in sources.items()]

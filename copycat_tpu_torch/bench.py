@@ -59,7 +59,16 @@ scenarios, at the same shapes and in the same units:
   zipfian (``--zipf`` 0.9) device counters interleaved with host-shadow
   string sets from an ``--ineligible`` (0.25) fraction of sessions,
   ``--ops`` (48) a session a burst; reports committed ops/s and the
-  ``apply.*`` family.
+  ``apply.*`` family;
+- ``compartment`` — the deployment plane end to end
+  (``run_compartment``): a supervised topology of OS processes
+  (``deploy/``: 3 members × 4 groups serving the counter machine on the
+  host, and an ingress tier swept over the widths 1, 2 and 4), 8 TCP
+  clients × 600 zipfian (0.9) writes over 1,000,000 keys a burst, 3
+  bursts, disk storage; on the widest tier ``kill -9`` of a member and
+  of an ingress mid-load; reports committed ops/s per width and the
+  ingress tier's latency attribution, and fails on any lost
+  acknowledged write (the ``COPYCAT_BENCH_COMPARTMENT_*`` knobs).
 
 The three public-API scenarios report the reference's fields under its
 metric names, less ``vs_baseline`` (a ratio to the reference's TPU north
@@ -86,7 +95,7 @@ resource leaves differ after the run (must be 0).
 
     python -m copycat_tpu_torch.bench
         [--scenario counter|map|lock|mixed|election|map_read|host|
-                    host_read|session|spi|readmix|apply]
+                    host_read|session|spi|readmix|apply|compartment]
         [--device cuda|cpu] [--metrics-json PATH]
         [--read-level sequential|atomic|none|linearizable] [--groups N
         --peers P --rounds R --repeats K] [--mode deep|deepscan|bulk|queued]
@@ -94,6 +103,7 @@ resource leaves differ after the run (must be 0).
         [--instances N --bursts N --waves N --payload int|str
         --pools counters|all --transport local|tcp|native --log-slots L]
         [--reads N] [--ops N --keys N --zipf S --ineligible F]
+        [--storage memory|mapped|disk]
 
 probes the card first (``utils/platform.py``; a failed probe exits 2,
 there is no fallback to the CPU), runs on it and prints one JSON line;
@@ -378,7 +388,7 @@ SUBMIT_PATTERNS = {
 }
 SCENARIOS = tuple(SUBMIT_PATTERNS) + ("election", "map_read", "host",
                                       "host_read", "session", "spi",
-                                      "readmix", "apply")
+                                      "readmix", "apply", "compartment")
 HOST_MODES = ("deep", "deepscan", "bulk", "queued")
 HOST_LOG_SLOTS = 64
 SESSIONS = 16
@@ -1517,6 +1527,316 @@ def run_apply(groups: int = APPLY["groups"],
     return asyncio.run(drive())
 
 
+def run_compartment(groups: int | None = None,
+                    storage: str | None = None) -> dict:
+    """Compartmentalized deployment bench (docs/DEPLOYMENT.md): committed
+    ops/sec through a REAL multi-process topology — one OS process per
+    Raft member and per standalone ingress proxy, real sockets, real
+    fsync — swept across ingress-tier widths
+    (``COPYCAT_BENCH_COMPARTMENT_TIERS``, default ``1,2,4``).
+
+    The compartmentalization claim under test (PAPERS.md, "Scaling
+    Replicated State Machines with Compartmentalization"): the ingress
+    role — client connections, session fan-out, per-group routing, the
+    global ingress batching — scales out independently of the write
+    quorums it fronts. In-process benches cannot observe this (every
+    tier shares one GIL); here each width is a fresh supervised
+    topology and the clients pin round-robin across the tier, so adding
+    ingress processes adds real CPU parallelism to exactly one role.
+
+    Per-tier attribution rides the artifact from the existing
+    ``latency.*`` plane: every ingress process records
+    ``latency.ingress_queue_ms`` / ``latency.proxy_hop_ms`` for every
+    forward (scraped over its stats port), and the client records
+    ``submit_latency_ms`` end-to-end.
+
+    The nemesis phase (``COPYCAT_BENCH_COMPARTMENT_NEMESIS``, on by
+    default, widest tier only) SIGKILLs one member AND one ingress proxy
+    mid-load through the supervisor: clients re-route within the tier,
+    the supervisor restarts the corpses with backoff, and the read-back
+    asserts ZERO lost acknowledged writes — every key's replicated
+    counter covers every acked increment, and exceeds it only by
+    in-doubt (INDETERMINATE) submissions, the exactly-once contract.
+
+    ``COPYCAT_INGRESS_TIER=0`` is the A/B lane: no ingress processes
+    deploy and clients dial the members' in-server ingress directly
+    (width 0 in the artifact).
+
+    The members serve the counter machine on the host, as the
+    reference's do: the scenario runs no device work. ``groups`` and
+    ``storage`` override their knobs (``--groups``, ``--storage``).
+    Reports the reference's fields except ``vs_baseline`` (a ratio to
+    the reference's TPU north star)."""
+    import asyncio
+    import random as _random
+
+    from .client.client import PinnedConnectionStrategy, RaftClient
+    from .deploy.supervisor import Supervisor
+    from .deploy.topology import TopologySpec
+    from .io.tcp import TcpTransport
+    from .io.transport import Address
+    from .server.stats import fetch_stats
+    from .testing.counter_machine import ClusterAdd, ClusterGet
+    from .utils import knobs
+
+    members = max(1, knobs.get_int("COPYCAT_BENCH_COMPARTMENT_MEMBERS"))
+    groups = max(1, groups or knobs.get_int(
+        "COPYCAT_BENCH_COMPARTMENT_GROUPS"))
+    n_clients = knobs.get_int("COPYCAT_BENCH_COMPARTMENT_CLIENTS")
+    ops_per_client = knobs.get_int("COPYCAT_BENCH_COMPARTMENT_OPS")
+    bursts = knobs.get_int("COPYCAT_BENCH_COMPARTMENT_BURSTS")
+    n_keys = knobs.get_int("COPYCAT_BENCH_COMPARTMENT_KEYS")
+    zipf_s = knobs.get_float("COPYCAT_BENCH_COMPARTMENT_ZIPF")
+    storage = storage or knobs.get_str("COPYCAT_BENCH_COMPARTMENT_STORAGE")
+    run_nemesis = knobs.get_bool("COPYCAT_BENCH_COMPARTMENT_NEMESIS")
+    if knobs.get_bool("COPYCAT_INGRESS_TIER"):
+        tiers = [max(1, int(w)) for w in knobs.get_str(
+            "COPYCAT_BENCH_COMPARTMENT_TIERS").split(",") if w.strip()]
+    else:
+        # the A/B lane: no standalone tier, clients dial the members'
+        # in-server ingress directly
+        tiers = [0]
+    machine = "copycat_tpu_torch.testing.counter_machine:counter_machine"
+
+    rng = _random.Random(12)
+    draw_rank = zipf_sampler(rng, n_keys, zipf_s)
+
+    def draw_key() -> str:
+        return f"user:{draw_rank()}"
+
+    async def load(client: RaftClient, keys: list,
+                   acked: dict, indet: dict) -> None:
+        """Streamed micro-batch writer (the sharded scenario's shape)
+        that CLASSIFIES every outcome: resolved future = acknowledged
+        (the server must never lose it), failed future = in-doubt.
+        Chunked so a mid-load process kill leaves a bounded in-flight
+        window to classify, not a whole burst."""
+        chunk, cap = 64, 768
+        pending: list = []
+        for i in range(0, len(keys), chunk):
+            part = keys[i:i + chunk]
+            pending.extend(
+                (k, client.submit_command_nowait(ClusterAdd(key=k,
+                                                            delta=1)))
+                for k in part)
+            await asyncio.sleep(0)  # turn boundary: one staged batch
+            while len(pending) >= cap:
+                k, fut = pending.pop(0)
+                try:
+                    await fut
+                    acked[k] = acked.get(k, 0) + 1
+                except Exception:
+                    indet[k] = indet.get(k, 0) + 1
+        for k, fut in pending:
+            try:
+                await fut
+                acked[k] = acked.get(k, 0) + 1
+            except Exception:
+                indet[k] = indet.get(k, 0) + 1
+
+    async def scrape(spec: TopologySpec, names: list) -> dict:
+        """Per-process ``/stats`` scrape -> the per-tier attribution
+        block: ingress latency phases + forward counters per ingress
+        process (an unreachable stats port records as ``None``, never
+        drops the row)."""
+        out: dict = {}
+        for name in names:
+            try:
+                snap = json.loads(await fetch_stats(
+                    spec.stats_addrs()[name], "/stats", timeout=5.0))
+            except (OSError, RuntimeError, ValueError,
+                    asyncio.TimeoutError):
+                out[name] = None
+                continue
+            ing = snap.get("ingress", {})
+            out[name] = {
+                k: ing.get(k) for k in (
+                    "latency.ingress_queue_ms", "latency.proxy_hop_ms",
+                    "ingress.commands_forwarded", "ingress.sessions",
+                    "ingress.proxy_retries", "ingress.reroutes")}
+        return out
+
+    async def run_width(width: int) -> dict:
+        spec = TopologySpec.local(
+            members=members, ingresses=width, groups=groups,
+            storage=storage, machine=machine)
+        sup = Supervisor(spec)
+        await sup.open()
+        clients: list[RaftClient] = []
+        restore_gc = None
+        try:
+            await sup.wait_healthy(timeout=180)
+            addrs = [Address.parse(a) for a in spec.client_addrs()]
+            clients = [
+                RaftClient(addrs, TcpTransport(), session_timeout=120.0,
+                           connection_strategy=PinnedConnectionStrategy(
+                               addrs[i % len(addrs)]))
+                for i in range(n_clients)]
+            await asyncio.gather(*(c.open() for c in clients))
+            # warmup: one committed write per client primes leader
+            # views, session replicas and the disk lanes end to end
+            await asyncio.gather(*(
+                c.submit(ClusterAdd(key=f"warm:{i}", delta=1))
+                for i, c in enumerate(clients)))
+            log(f"bench[compartment]: width {width}: {members} member + "
+                f"{width} ingress process(es), {groups} group(s), "
+                f"{n_clients} clients x {ops_per_client} ops/burst, "
+                f"zipf s={zipf_s} over {n_keys} keys, storage={storage}")
+            restore_gc = _bench_gc_tune()
+            burst_ops = n_clients * ops_per_client
+            acked: dict[str, int] = {}
+            indet: dict[str, int] = {}
+            reps = []
+            for rep in range(bursts):
+                burst_keys = [[draw_key() for _ in range(ops_per_client)]
+                              for _ in range(n_clients)]
+                t0 = time.perf_counter()
+                await asyncio.gather(*(
+                    load(c, ks, acked, indet)
+                    for c, ks in zip(clients, burst_keys)))
+                dt = time.perf_counter() - t0
+                ops = burst_ops / dt
+                reps.append(ops)
+                log(f"bench[compartment]: width {width} rep {rep}: "
+                    f"{burst_ops} ops in {dt:.3f}s -> {ops:,.0f} ops/sec")
+            attribution = await scrape(
+                spec, [i.name for i in spec.ingresses])
+            out = {
+                "width": width,
+                "ops_per_sec": round(max(reps), 1),
+                "client_submit_ms": clients[0].metrics.histogram(
+                    "submit_latency_ms").percentile(99),
+                "ingress_attribution": attribution,
+                **spread(reps),
+            }
+            if run_nemesis and width == max(tiers) and members >= 3:
+                out["nemesis"] = await nemesis_phase(
+                    sup, spec, clients, width, acked, indet)
+            # zero lost acknowledged writes, every width: each touched
+            # key's replicated counter covers every acked increment and
+            # exceeds it only by in-doubt submissions
+            lost = over = 0
+            touched = sorted(acked)
+            for i in range(0, len(touched), 256):
+                part = touched[i:i + 256]
+                got = await asyncio.gather(*(
+                    clients[j % len(clients)].submit(ClusterGet(key=k))
+                    for j, k in enumerate(part)))
+                for k, v in zip(part, got):
+                    if v < acked[k]:
+                        lost += acked[k] - v
+                    if v > acked[k] + indet.get(k, 0):
+                        over += v - acked[k] - indet.get(k, 0)
+            assert lost == 0, f"LOST {lost} acknowledged write(s)"
+            assert over == 0, f"{over} duplicate apply(s) (exactly-once)"
+            out["acked_ops"] = sum(acked.values())
+            out["indeterminate_ops"] = sum(indet.values())
+            out["lost_acked_writes"] = lost
+            return out
+        finally:
+            if restore_gc is not None:
+                restore_gc()
+            for c in clients:
+                try:
+                    await asyncio.wait_for(c.close(), 10)
+                except Exception:
+                    pass
+            await sup.close()
+
+    async def nemesis_phase(sup: Supervisor, spec: TopologySpec,
+                            clients: list, width: int,
+                            acked: dict, indet: dict) -> dict:
+        """kill -9 one member AND one ingress proxy mid-load through the
+        supervisor (the process-level nemesis): clients re-route within
+        the ingress tier, the supervisor restarts the corpses with
+        backoff, and the caller's read-back proves zero lost
+        acknowledged writes."""
+        from .utils.tasks import spawn as spawn_task
+
+        # A SIGKILLed MEMORY-storage member restarts blank — no log, no
+        # (term, voted_for) — which violates Raft's persistence
+        # assumptions: the blank member can grant a vote that elects a
+        # leader missing an acked entry, a TRUE lost write. The member
+        # kill therefore requires a durable level; on memory the
+        # nemesis kills only the (stateless-by-design) ingress.
+        kill_member = storage != "memory" and members >= 3
+        log(f"bench[compartment]: nemesis: kill -9"
+            + (" member-1" if kill_member else "")
+            + (" + ingress-0" if width else "")
+            + f" under load (width {width}, storage={storage})")
+        keys = [[draw_key() for _ in range(ops_per_client)]
+                for _ in range(n_clients)]
+        tasks = [spawn_task(load(c, ks, acked, indet),
+                            name="compartment-nemesis-load")
+                 for c, ks in zip(clients, keys)]
+        try:
+            await asyncio.sleep(0.15)  # mid-load, not before it
+            ok_m, detail_m = (sup.kill("member-1") if kill_member
+                              else (False, f"member kill skipped on "
+                                           f"{storage} storage"))
+            await asyncio.sleep(0.15)
+            ok_i, detail_i = (sup.kill("ingress-0") if width
+                              else (False, "no ingress tier"))
+            await asyncio.gather(*tasks)
+        finally:
+            for t in tasks:
+                t.cancel()
+        # both corpses must come back under supervision before teardown
+        # (restart-with-backoff is half the nemesis claim)
+        deadline = time.monotonic() + 60
+        victims = ((["member-1"] if kill_member else [])
+                   + (["ingress-0"] if width else []))
+        while time.monotonic() < deadline:
+            status = sup.status()["children"]
+            if all(status[v]["state"] == "running"
+                   and status[v]["pid"] for v in victims):
+                break
+            await asyncio.sleep(0.25)
+        status = sup.status()["children"]
+        return {
+            "killed": {"member": detail_m if ok_m else None,
+                       "ingress": detail_i if ok_i else None},
+            "restarts": {v: status[v]["restarts"] for v in victims},
+            "restored": all(status[v]["state"] == "running"
+                            for v in victims),
+        }
+
+    async def drive() -> dict:
+        widths = []
+        for width in tiers:
+            widths.append(await run_width(width))
+        by_width = {str(w["width"]): w["ops_per_sec"] for w in widths}
+        best = max(w["ops_per_sec"] for w in widths)
+        base = widths[0]["ops_per_sec"]
+        nemesis = next((w.get("nemesis") for w in widths
+                        if "nemesis" in w), None)
+        METRICS_SNAPSHOTS["compartment"] = {
+            str(w["width"]): w["ingress_attribution"] for w in widths}
+        return {
+            "metric": (f"compartment_committed_ops_per_sec_{members}"
+                       f"_members_{groups}_groups"),
+            "value": best,
+            "unit": "ops/sec",
+            "members": members,
+            "groups": groups,
+            "storage_level": storage,
+            "clients": n_clients,
+            "zipf_s": zipf_s,
+            "keys": n_keys,
+            "ingress_tier": knobs.get_bool("COPYCAT_INGRESS_TIER"),
+            "tier_widths": tiers,
+            "ops_by_width": by_width,
+            "scaling_vs_width1": {
+                k: round(v / base, 3) for k, v in by_width.items()},
+            "widths": widths,
+            **({"nemesis": nemesis} if nemesis is not None else {}),
+            "lost_acked_writes": sum(w["lost_acked_writes"]
+                                     for w in widths),
+        }
+
+    return asyncio.run(drive())
+
+
 def _run(args) -> dict:
     """The scenario ``args`` names, at its flags (a flag left unset takes
     the scenario's default)."""
@@ -1531,6 +1851,8 @@ def _run(args) -> dict:
                            args.read_level or READMIX_LEVEL,
                            args.log_slots or SPI_LOG_SLOTS, args.peers,
                            device=dev)
+    if args.scenario == "compartment":
+        return run_compartment(args.groups, args.storage)
     if args.scenario == "apply":
         return run_apply(args.groups or APPLY["groups"],
                          args.sessions or APPLY["sessions"], args.ops,
@@ -1583,7 +1905,11 @@ def main(argv: list[str] | None = None) -> None:
     p.add_argument("--groups", type=int,
                    help=f"default {GROUPS} ({ELECTION_GROUPS} for election; "
                         f"apply: Raft groups of the server, default "
-                        f"{APPLY['groups']})")
+                        f"{APPLY['groups']}; compartment: groups of every "
+                        f"member, default COPYCAT_BENCH_COMPARTMENT_GROUPS)")
+    p.add_argument("--storage", choices=("memory", "mapped", "disk"),
+                   help="compartment: member log storage level (default "
+                        "COPYCAT_BENCH_COMPARTMENT_STORAGE, disk)")
     p.add_argument("--peers", type=int, default=PEERS)
     p.add_argument("--rounds", type=int, default=ROUNDS)
     p.add_argument("--repeats", type=int, default=REPEATS)

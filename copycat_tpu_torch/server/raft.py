@@ -770,7 +770,7 @@ class RaftServer(Managed):
                 session = grp.sessions.get(session_id)
                 if session is None \
                         or session.state is not SessionState.OPEN:
-                    return msg.ProxyResponse(error=msg.UNKNOWN_SESSION)
+                    return grp._session_missing(msg.ProxyResponse)
                 await grp.keepalive_local(session_id, command_seq,
                                           event_index)
                 return msg.ProxyResponse(result=True)

@@ -285,6 +285,10 @@ class RaftGroup:
 
         self._election_timer: Scheduled | None = None
         self._leader_timer: Scheduled | None = None
+        # index of the entry this member appended on taking leadership:
+        # until it has applied through it, its session table may lack a
+        # session its log registers (see _session_missing)
+        self._term_start = 0
 
         # read pump windows (per group: the gate is per-group leadership)
         self._read_windows: dict[str, list] = {}
@@ -980,7 +984,7 @@ class RaftGroup:
             session.last_contact = now
         # Commit an entry from this term immediately (Raft §5.4.2) and advance
         # the state machine clock.
-        self._append(NoOpEntry())
+        self._term_start = self._append(NoOpEntry())
         self._leader_timer = Scheduled(self.heartbeat_interval,
                                        self.heartbeat_interval,
                                        self._leader_maintenance)
@@ -1631,7 +1635,15 @@ class RaftGroup:
 
     async def _on_vote(self, request: msg.VoteRequest) -> msg.VoteResponse:
         if request.term > self.term:
-            self._become_follower(request.term, None)
+            # Adopt the term but keep a running election timer: only a
+            # granted vote (below) restarts it. A candidate whose log is
+            # behind (a member restarted from an old log) would otherwise
+            # restart the up-to-date members' timers on every campaign,
+            # and as the group's rank-0 member it always times out first:
+            # the group would never elect. A deposed leader has no timer
+            # running and gets a fresh one.
+            self._become_follower(request.term, None,
+                                  reset_timer=self.role == LEADER)
         if request.term < self.term:
             return msg.VoteResponse(term=self.term, voted=False)
         up_to_date = (request.last_log_term, request.last_log_index) >= (
@@ -1827,6 +1839,17 @@ class RaftGroup:
             error=msg.NOT_LEADER if self.leader_address else msg.NO_LEADER,
             leader=self.leader_address)
 
+    def _session_missing(self, response_type: type) -> Any:
+        """The answer of a leader that holds no open session under the
+        id asked for. A member restarted from its log replays only what
+        it commits, so until this leader has applied through its term's
+        first entry a session its log registers may not be in its table
+        yet: it answers as a member not yet leader, and the caller
+        retries. After that the session is unknown, and expired."""
+        if self.last_applied < self._term_start:
+            return self._not_leader(response_type)
+        return response_type(error=msg.UNKNOWN_SESSION)
+
     async def _on_register(self, connection: Connection,
                            request: msg.RegisterRequest
                            ) -> msg.RegisterResponse:
@@ -1858,8 +1881,9 @@ class RaftGroup:
             return response
         session = self.sessions.get(request.session_id)
         if session is None or session.state is not SessionState.OPEN:
-            return msg.KeepAliveResponse(error=msg.UNKNOWN_SESSION,
-                                         members=self.members)
+            response = self._session_missing(msg.KeepAliveResponse)
+            response.members = self.members
+            return response
         session.connection = connection
         session.last_contact = time.monotonic()
         if getattr(request, "unsubscribe", None):
@@ -1899,7 +1923,7 @@ class RaftGroup:
             return self._not_leader(msg.CommandResponse)
         session = self.sessions.get(request.session_id)
         if session is None or session.state is not SessionState.OPEN:
-            return msg.CommandResponse(error=msg.UNKNOWN_SESSION)
+            return self._session_missing(msg.CommandResponse)
         session.connection = connection
         session.last_contact = time.monotonic()
         seq = request.seq
@@ -1989,7 +2013,7 @@ class RaftGroup:
             return self._not_leader(msg.CommandBatchResponse)
         session = self.sessions.get(request.session_id)
         if session is None or session.state is not SessionState.OPEN:
-            return msg.CommandBatchResponse(error=msg.UNKNOWN_SESSION)
+            return self._session_missing(msg.CommandBatchResponse)
         session.connection = connection
         session.last_contact = time.monotonic()
         entries = request.entries or []
@@ -2224,7 +2248,8 @@ class RaftGroup:
                           else msg.NO_LEADER, "", self.leader_address)
         session = self.sessions.get(session_id)
         if session is None or session.state is not SessionState.OPEN:
-            return None, (msg.UNKNOWN_SESSION, "", None)
+            missing = self._session_missing(msg.ProxyResponse)
+            return None, (missing.error, "", missing.leader)
         session.last_contact = time.monotonic()
         if session.next_append_seq == 0:
             session.next_append_seq = session.command_high + 1

@@ -61,6 +61,8 @@ SECTIONS = (
     ("client", "Client"),
     ("verdict", "Linearizability verdict runner"),
     ("platform", "Device probe"),
+    ("deploy", "Deployment plane"),
+    ("bench", "Bench scenarios"),
 )
 _SECTION_KEYS = tuple(key for key, _ in SECTIONS)
 
@@ -96,13 +98,6 @@ _knob("COPYCAT_APPLY_FUSE", "bool", True,
       "`0` restores one engine dispatch per group per run — staged "
       "vector runs no longer fuse across groups into one device round "
       "per server turn (the cross-group fusion A/B)", section="server")
-
-_knob("COPYCAT_INGRESS_TIER", "bool", True,
-      "`0` removes the standalone ingress/proxy tier: members refuse "
-      "ingress-kind proxy traffic (single-group servers register no "
-      "ProxyRequest handler), topologies/benches deploy no ingress "
-      "processes — the in-server ingress path bit-identically "
-      "(docs/DEPLOYMENT.md)", section="server")
 
 # --- replication -----------------------------------------------------------
 _knob("COPYCAT_REPL_PIPELINE", "bool", True,
@@ -295,6 +290,57 @@ _knob("COPYCAT_DEVICE_PROBES", "int", 5,
 _knob("COPYCAT_BENCH_DEVICE_TIMEOUT", "float", 120.0,
       "probe timeout for bench runs (a failed probe exits 2; the port "
       "never falls back to the CPU)", section="platform")
+
+# --- deployment plane ------------------------------------------------------
+_knob("COPYCAT_INGRESS_TIER", "bool", True,
+      "`0` removes the standalone ingress/proxy tier: members refuse "
+      "ingress-kind proxy traffic (single-group servers register no "
+      "ProxyRequest handler), topologies/benches deploy no ingress "
+      "processes — the in-server ingress path bit-identically "
+      "(docs/DEPLOYMENT.md)", section="deploy")
+_knob("COPYCAT_DEPLOY_HEALTH_INTERVAL_S", "float", 1.0,
+      "supervisor `/healthz` poll cadence per child process",
+      section="deploy")
+_knob("COPYCAT_DEPLOY_RESTART_BACKOFF_S", "float", 0.5,
+      "initial restart backoff after a child crash (doubles per "
+      "consecutive crash)", section="deploy")
+_knob("COPYCAT_DEPLOY_RESTART_MAX_S", "float", 8.0,
+      "restart backoff ceiling", section="deploy")
+_knob("COPYCAT_DEPLOY_GRACE_S", "float", 5.0,
+      "seconds between SIGTERM and SIGKILL at teardown",
+      section="deploy")
+
+# --- bench scenarios -------------------------------------------------------
+_knob("COPYCAT_BENCH_COMPARTMENT_MEMBERS", "int", 3,
+      "Raft member processes in the compartment scenario",
+      section="bench")
+_knob("COPYCAT_BENCH_COMPARTMENT_TIERS", "str", "1,2,4",
+      "comma-separated ingress-tier widths the compartment scenario "
+      "sweeps (processes per width)", section="bench")
+_knob("COPYCAT_BENCH_COMPARTMENT_GROUPS", "int", 4,
+      "Raft groups in the compartment scenario", section="bench")
+_knob("COPYCAT_BENCH_COMPARTMENT_CLIENTS", "int", 8,
+      "concurrent TCP clients in the compartment scenario",
+      section="bench")
+_knob("COPYCAT_BENCH_COMPARTMENT_OPS", "int", 600,
+      "commands per client per burst in the compartment scenario",
+      section="bench")
+_knob("COPYCAT_BENCH_COMPARTMENT_BURSTS", "int", 3,
+      "measured bursts (best-of) per tier width", section="bench")
+_knob("COPYCAT_BENCH_COMPARTMENT_KEYS", "int", 1_000_000,
+      "zipfian keyspace size in the compartment scenario (the "
+      "million-key shape)", section="bench")
+_knob("COPYCAT_BENCH_COMPARTMENT_ZIPF", "float", 0.9,
+      "zipf skew exponent for the compartment scenario's key draw",
+      section="bench")
+_knob("COPYCAT_BENCH_COMPARTMENT_STORAGE", "str", "disk",
+      choices=("memory", "mapped", "disk"),
+      doc="member log storage level in the compartment scenario (real "
+          "fsync by default)", section="bench")
+_knob("COPYCAT_BENCH_COMPARTMENT_NEMESIS", "bool", True,
+      "`0` skips the process-level nemesis phase (kill -9 a member + "
+      "an ingress proxy mid-load, zero lost acknowledged writes)",
+      section="bench")
 
 
 # --- typed getters ---------------------------------------------------------

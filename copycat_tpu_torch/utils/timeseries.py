@@ -463,8 +463,8 @@ def render_timeline(timeline: dict) -> str:
 def _flatten_numeric(snap: dict, prefix: str = "") -> dict:
     """Flatten a stats snapshot to dotted numeric keys (histogram
     summaries expand to .count/.mean/.p50/.p99/.max; ``_gauge_keys``
-    hints are dropped) — the port's copy of the reference CLI's
-    flattening; the port carries no CLI."""
+    hints are dropped). One home: the CLI's ``stats --watch`` renderer
+    and the ``top`` dashboard both read it."""
     out: dict = {}
     for k, v in snap.items():
         if k == "_gauge_keys":
