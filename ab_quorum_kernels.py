@@ -1,13 +1,14 @@
-"""The fused quorum kernels of this checkout against another checkout's,
-timed on one CUDA card on the same inputs.
+"""The quorum kernels of this checkout against another checkout's, timed
+on one CUDA card on the same inputs.
 
     python3 ab_quorum_kernels.py OTHER_CHECKOUT
 
-Builds ``OTHER_CHECKOUT/copycat_tpu_torch/csrc/quorum_phase.cu`` (with the
-headers beside it) as ``ops/kernels.py`` builds this checkout's, and calls
-both libraries through this checkout's wrappers ``admit_submits_cuda`` and
-``ack_commit_cuda`` (the same checks, allocations and C entry points), in
-turns: other, this, this, other. Inputs:
+Builds ``OTHER_CHECKOUT/copycat_tpu_torch/csrc/quorum_phase.cu`` and
+``kth_largest.cu`` (with the headers beside them) as ``ops/kernels.py``
+builds this checkout's, and calls both checkouts' libraries through this
+checkout's wrappers ``admit_submits_cuda``, ``ack_commit_cuda`` and
+``kth_largest_cuda`` (the same checks, allocations and C entry points), in
+turns: other, this, this, other. Inputs of the fused kernels:
 
 - the wide serves' own step inputs (``chip_smoke.wide_serve``):
   ``RaftGroups(10_000, 9)`` and ``(10_000, 16)``, and ``(10_000, 9)`` with
@@ -17,13 +18,17 @@ turns: other, this, this, other. Inputs:
   masked, whose unrolled kernels the two checkouts may share, as a
   measure of the noise.
 
+The tally alone runs on drawn rows (``chip_smoke.edge_rows``: duplicates
+and INT32_MIN lanes) at G=10,000, k = P // 2 + 1, for P = 9, 16, 32 and
+33, and P = 3 as the control.
+
 Each build's outputs are checked equal to the plain version first. Each
 kernel and shape prints one JSON line: device ms per call (100 calls in a
 CUDA graph, replayed 20 times) in each turn; the kernel's own duration on
 the device in each turn (``torch.profiler``, CUDA activity, 50 eager
 calls: from the kernel's start to its end, without the gap between two
 launches); and the bound. The card's name and power limit print first,
-then each kernel of this checkout's source with its registers, spills and
+then each kernel of this checkout's sources with its registers, spills and
 shared memory as ``nvcc -Xptxas -v`` reports them. Without a card it exits
 non-zero.
 """
@@ -50,19 +55,21 @@ import chip_smoke as cs
 SHAPES = ((9, False, True), (16, False, True), (9, True, True),
           (32, False, False), (32, True, False), (33, False, False),
           (3, False, False), (5, True, False))
+# P of the tally alone: the warp tiles, and an unrolled control
+TALLY_PEERS = (9, 16, 32, 33, 3)
 
 
-def other_entries(kernels, checkout: pathlib.Path) -> dict:
-    """The C entry points of ``checkout``'s ``quorum_phase.cu``, built into
-    this checkout's build directory (keyed on that source's hash)."""
-    src = checkout.resolve() / "copycat_tpu_torch" / "csrc" / \
-        kernels.PHASE_SOURCE.name
-    lib = ctypes.CDLL(str(kernels.build_libraries((src,))[0]))
+def entries(kernels, sources) -> dict:
+    """The C entry points of ``sources``, each built into this checkout's
+    build directory (keyed on that source's hash)."""
+    libs = kernels.build_libraries(sources)
     fns = {}
-    for name, argtypes in kernels.ENTRY_POINTS[src.name].items():
-        fn = fns[name] = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+    for src, path in zip(sources, libs):
+        lib = ctypes.CDLL(str(path))
+        for name, argtypes in kernels.ENTRY_POINTS[src.name].items():
+            fn = fns[name] = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
     return fns
 
 
@@ -110,15 +117,36 @@ def kernel_ms(fn, calls: int = 50) -> float:
 
 
 @contextlib.contextmanager
-def launching(kernels, entries: dict):
-    """While open, the wrappers launch through ``entries``."""
-    saved = {name: kernels._entry(kernels.PHASE_SOURCE, name)
-             for name in entries}
-    kernels._entries.update(entries)
+def launching(kernels, fns: dict):
+    """While open, the wrappers launch through the entry points ``fns``."""
+    saved = {name: kernels._entries[name] for name in fns}
+    kernels._entries.update(fns)
     try:
         yield
     finally:
         kernels._entries.update(saved)
+
+
+def turns(kernels, builds: dict, kern, check) -> tuple[dict, dict]:
+    """Device ms per call (CUDA graph) and the kernel's own duration
+    (profiler) of ``kern`` in each build, in turns other, this, this,
+    other; ``check(build)`` holds its outputs against the plain version
+    first."""
+    ms = {b: [] for b in builds}
+    own = {b: [] for b in builds}
+    for build in ("other", "this", "this", "other"):
+        with launching(kernels, builds[build]):
+            check(build)
+            ms[build].append(cs.graph_ms(kern))
+            own[build].append(kernel_ms(kern))
+    return ms, own
+
+
+def means(ms: dict, own: dict) -> dict:
+    return {"other_ms": ms["other"], "this_ms": ms["this"],
+            "other_mean_ms": sum(ms["other"]) / 2,
+            "this_mean_ms": sum(ms["this"]) / 2,
+            "other_kernel_ms": own["other"], "this_kernel_ms": own["this"]}
 
 
 def main() -> int:
@@ -138,12 +166,14 @@ def main() -> int:
     dev = torch.device("cuda")
     card = card_info()
     cs.say(card)
-    for line in ptxas_report(kernels, kernels.PHASE_SOURCE):
-        cs.say(f"ptxas: {line}")
-    kernels.load_libraries()
-    builds = {"this": {name: kernels._entry(kernels.PHASE_SOURCE, name)
-                       for name in kernels.ENTRY_POINTS["quorum_phase.cu"]},
-              "other": other_entries(kernels, args.other)}
+    for source in kernels.SOURCES:
+        for line in ptxas_report(kernels, source):
+            cs.say(f"ptxas: {line}")
+    other_csrc = args.other.resolve() / "copycat_tpu_torch" / "csrc"
+    builds = {"this": entries(kernels, kernels.SOURCES),
+              "other": entries(kernels, tuple(
+                  other_csrc / src.name for src in kernels.SOURCES))}
+    kernels._entries.update(builds["this"])
     rng = np.random.default_rng(9)
     for P, masked, served in SHAPES:
         if served:
@@ -158,21 +188,28 @@ def main() -> int:
         for name in ("admit_submits", "ack_commit"):
             kern, plain, _, bound = fns[name]
             what = f"{name} at P={P}" + (" (masked)" if masked else "")
-            ms = {b: [] for b in builds}
-            own = {b: [] for b in builds}
-            for build in ("other", "this", "this", "other"):
-                with launching(kernels, builds[build]):
-                    cs.max_err(kern(), plain(), f"{what}, {build} build")
-                    ms[build].append(cs.graph_ms(kern))
-                    own[build].append(kernel_ms(kern))
+            timed = turns(kernels, builds, kern, lambda build: cs.max_err(
+                kern(), plain(), f"{what}, {build} build"))
             cs.say(json.dumps({
                 "name": name, "P": P, "masked": masked, "G": 10_000, "S": S,
                 "inputs": "the serve's step" if served else "drawn",
-                "other_ms": ms["other"], "this_ms": ms["this"],
-                "other_mean_ms": sum(ms["other"]) / 2,
-                "this_mean_ms": sum(ms["this"]) / 2,
-                "other_kernel_ms": own["other"],
-                "this_kernel_ms": own["this"], **bound, "card": card}))
+                **means(*timed), **bound, "card": card}))
+    for P in TALLY_PEERS:
+        G, k = 10_000, P // 2 + 1
+        x = torch.from_numpy(cs.edge_rows(rng, G, P)).to(dev)
+        want = kernels.kth_largest_plain(x, k)
+
+        def same(build):
+            if not torch.equal(kernels.kth_largest_cuda(x, k), want):
+                raise AssertionError(f"kth_largest at P={P}, {build} build "
+                                     "differs from the plain version")
+
+        timed = turns(kernels, builds, lambda: kernels.kth_largest_cuda(x, k),
+                      same)
+        cs.say(json.dumps({
+            "name": "kth_largest", "P": P, "k": k, "G": G, "inputs": "drawn",
+            **means(*timed), **cs.bounds(G * P * 4 + G * 4, 2 * G * P * P),
+            "card": card}))
     return 0
 
 

@@ -95,7 +95,7 @@ Phases, each of which raises (and so exits non-zero) on failure:
 17. ``host_read`` — 128 reads per group at both read levels, every read
     7; ``session`` — 16 sessions, 128 ops per group a flush, group 0's
     counter exactly once;
-18. wide kernels — the fused kernels' warp-tile path (P > 8):
+18. wide kernels — the warp-tile path (P > 8) of every quorum kernel:
     ``RaftGroups(10_000, 9)`` and ``(10_000, 16)``, and ``(10_000, 9)``
     with 5 voters under dynamic membership adding lane 5, serving a
     counter op per group (S=4); ``admit_submits`` and ``ack_commit``
@@ -103,8 +103,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
     them, and timed there beside their plain versions and bounds; the
     same on drawn inputs at G = 10,000 (S = 16) and 1,001 (S = 5); at P =
     16 (masked), 32 (static and masked) and 33 (static) on drawn inputs
-    alone, timed on those at G = 10,000; and ``kth_largest`` at P = 9,
-    16, 32 and 33 on drawn rows;
+    alone, timed on those at G = 10,000; and ``kth_largest`` on drawn
+    rows, equal to its plain version bit for bit at P = 9, 16, 17, 32,
+    33, 64 and 130, G = 10,000 and 1,001, k = 1, P // 2 + 1 and P, and
+    timed beside ``torch.topk`` at P = 9, 16, 32 and 33;
 19. checkpoint — the mixed cell's engine (G=100,000 × P=5, L=32, six
     pools, budgets, flow control) after 20 rounds under the nemesis,
     saved with ``save_bytes`` and loaded onto the card: every leaf equal,
@@ -1512,6 +1514,36 @@ WIDE_SHAPES = ((9, False, True), (16, False, True), (9, True, True),
                (33, False, False))
 
 
+# P of the tally alone past the unrolled kernels, checked bit for bit at
+# every k from 1 to P's edges: the 16- and 32-lane tiles' edges, two lanes
+# a thread (64) and more than a thread keeps in registers (130)
+TALLY_CHECKS = (9, 16, 17, 32, 33, 64, 130)
+
+
+def check_wide_tally(kernels, dev) -> dict:
+    """``kth_largest_cuda`` equal to ``kth_largest_plain`` bit for bit on
+    drawn rows (duplicates, INT32_MIN lanes) at each ``TALLY_CHECKS`` P,
+    G = 10,000 and 1,001 (a partial last block), k = 1, P // 2 + 1 and P;
+    returns the largest |err| by P (0, or it raises)."""
+    rng = np.random.default_rng(17)
+    errs = {}
+    for P in TALLY_CHECKS:
+        for G in (10_000, 1_001):
+            x = torch.from_numpy(edge_rows(rng, G, P)).to(dev)
+            for k in sorted({1, P // 2 + 1, P}):
+                got = kernels.kth_largest_cuda(x, k)
+                want = kernels.kth_largest_plain(x, k)
+                err = int((got.long() - want.long()).abs().max())
+                if err or got.dtype != want.dtype:
+                    raise AssertionError(f"kth_largest at P={P}, G={G}, "
+                                         f"k={k}: err {err}")
+                errs[P] = max(errs.get(P, 0), err)
+    say(f"wide tally: kth_largest equal to the plain version bit for bit "
+        f"at P = {', '.join(map(str, TALLY_CHECKS))}, G = 10000 and 1001, "
+        "k = 1, P // 2 + 1 and P")
+    return errs
+
+
 def phase_wide_kernels(RaftGroups, kernels, cases, ap, ks: dict, dev,
                        card: str, G: int = 10_000) -> list[dict]:
     """The runtime-P (P > 8, warp-tile) kernels: ``RaftGroups`` at 9 and
@@ -1521,10 +1553,12 @@ def phase_wide_kernels(RaftGroups, kernels, cases, ap, ks: dict, dev,
     16 and at G = 1,001 (a partial last tile and block); at 16 (masked),
     32 (static and masked) and 33 peers on the drawn inputs alone, timed
     on those at G = 10,000; ``kth_largest`` (off the path) on drawn
-    rows."""
+    rows, checked at ``TALLY_CHECKS``' P and timed at the static shapes'
+    P."""
     rng = np.random.default_rng(9)
     L = 64
     rows = []
+    tally_errs = check_wide_tally(kernels, dev)
     for P, masked, served in WIDE_SHAPES:
         drawn = (wide_fns(kernels, cases, dev, rng, G, P, 16, L, masked),
                  wide_fns(kernels, cases, dev, rng, 1_001, P, 5, L, masked))
@@ -1558,6 +1592,7 @@ def phase_wide_kernels(RaftGroups, kernels, cases, ap, ks: dict, dev,
                           + inputs + (", member-masked)" if masked
                                       else ")"), card)
         if not masked:
+            errs["kth_largest"] = max(errs["kth_largest"], tally_errs[P])
             fns["kth_largest"] = drawn[0]["kth_largest"]
             timing.update(time_fns({"kth_largest": fns["kth_largest"]},
                                    per_round, f"G={G} P={P} (drawn rows)",
@@ -1572,7 +1607,7 @@ def phase_wide_kernels(RaftGroups, kernels, cases, ap, ks: dict, dev,
                 "replaces": "copycat_tpu/ops/pallas_kernels.py:69",
                 "launches": launched[name],
                 "max_abs_err": errs[name],
-                "timed_on": inputs,
+                "timed_on": "drawn rows" if name == "kth_largest" else inputs,
                 **{k: v for k, v in timing[name].items()
                    if k != "launches_per_bench_round"}})
         say(f"wide kernels{tag}: {sorted(fns)} equal to the plain versions "

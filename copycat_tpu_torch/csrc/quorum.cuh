@@ -31,25 +31,7 @@ __device__ __forceinline__ int32_t kth_select(const int32_t (&v)[P], int k) {
   return res;
 }
 
-// The same select over n lanes known only at run time (P > 8), each value
-// read through at(s) — kth_largest.cu's row in device memory. The same
-// tie-broken count, so the same result bit for bit.
-template <typename At>
-__device__ __forceinline__ int32_t kth_select_n(At at, int n, int k) {
-  int32_t res = 0;
-  for (int r = 0; r < n; ++r) {
-    const int32_t vr = at(r);
-    int rank = 0;
-    for (int s = 0; s < n; ++s) {
-      const int32_t vs = at(s);
-      rank += (vs > vr) || (vs == vr && s < r);
-    }
-    if (rank == k - 1) res = vr;
-  }
-  return res;
-}
-
-// ---- warp tiles (the fused phases' P > 8 path) -----------------------------
+// ---- warp tiles (the P > 8 path of every quorum kernel) --------------------
 //
 // A tile is W (16 or 32) consecutive threads of a warp that together own one
 // group, thread `lane` of the tile owning peer `lane` (and, past 32 peers,

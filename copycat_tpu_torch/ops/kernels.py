@@ -28,15 +28,17 @@ Each of the last three dispatches on the device of its tensors: a CPU
 tensor takes the plain version (``*_plain``), a CUDA tensor launches the
 hand-written kernel (``*_cuda``) or raises; any other device raises. Each
 dispatcher's ``launches`` counts its kernel launches. The kernels take any
-P: P <= 8 runs an unrolled instantiation with the lanes in registers; in
-the fused kernels a wider group runs on a warp tile, a thread a peer, its
-tally by warp shuffles (``kth_largest`` alone keeps one runtime-P
-instantiation); a member view takes at most 32 lanes, as many as its
-int32 bitmask names.
+P: P <= 8 runs an unrolled instantiation with the lanes in registers; a
+wider group runs on a warp tile, a thread a peer, its tally by warp
+shuffles; a member view takes at most 32 lanes, as many as its int32
+bitmask names.
 
 The kernel libraries are built with ``nvcc`` at first use, one per
 ``csrc/*.cu`` source (all started at once by :func:`load_libraries`), into
-``copycat_tpu_torch/_build/``, keyed on the hash of the source and the
+``copycat_tpu_torch/_build/`` (or, where the package's directory is
+read-only, as an installed package's may be, the user's cache directory:
+``$XDG_CACHE_HOME/copycat_tpu_torch``, else
+``~/.cache/copycat_tpu_torch``), keyed on the hash of the source and the
 headers beside it, and bound through plain C functions with ``ctypes``.
 """
 
@@ -275,6 +277,24 @@ def _find_nvcc() -> str:
         f"in {CSRC}")
 
 
+def _writable(path: pathlib.Path) -> bool:
+    """Whether ``path`` can be written, or made where it does not exist
+    yet (its nearest existing ancestor can be written)."""
+    while not path.exists() and path != path.parent:
+        path = path.parent
+    return os.access(path, os.W_OK | os.X_OK)
+
+
+def build_dir() -> pathlib.Path:
+    """Where the kernel libraries are written: ``BUILD_DIR`` beside the
+    package's sources, or the user's cache directory where that cannot be
+    written. Only the place changes: a build that fails still raises."""
+    if _writable(BUILD_DIR):
+        return BUILD_DIR
+    cache = os.environ.get("XDG_CACHE_HOME") or pathlib.Path.home() / ".cache"
+    return pathlib.Path(cache) / "copycat_tpu_torch"
+
+
 def library_path(source: pathlib.Path = KTH_SOURCE) -> pathlib.Path:
     """Where the built library for ``source`` lives: keyed on the content
     of the source and of the headers beside it, so an edited kernel is
@@ -282,7 +302,7 @@ def library_path(source: pathlib.Path = KTH_SOURCE) -> pathlib.Path:
     h = hashlib.sha256(source.read_bytes())
     for header in sorted(source.parent.glob("*.cuh")):
         h.update(header.read_bytes())
-    return BUILD_DIR / f"{source.stem}-{h.hexdigest()[:16]}.so"
+    return build_dir() / f"{source.stem}-{h.hexdigest()[:16]}.so"
 
 
 def build_libraries(sources=SOURCES) -> list[pathlib.Path]:
@@ -296,7 +316,8 @@ def build_libraries(sources=SOURCES) -> list[pathlib.Path]:
     if not todo:
         return outs
     nvcc = _find_nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    for _, out in todo:
+        out.parent.mkdir(parents=True, exist_ok=True)
     procs = []
     for src, out in todo:
         tmp = out.with_suffix(f".{os.getpid()}.tmp")

@@ -14,8 +14,9 @@ The reference's other helpers are XLA's and have no copy here:
   unless the caller names another, raising without a card).
 - ``enable_compilation_cache`` and ``_trim_cache_dir`` keep XLA's compiled
   programs across processes; the port's counterpart is the kernel build
-  directory ``copycat_tpu_torch/_build/`` (``ops/kernels.py``: one shared
-  object per source, keyed on the hash of the source and its headers).
+  directory ``copycat_tpu_torch/_build/``, or the user's cache directory
+  where the package's is read-only (``ops/kernels.py``: one shared object
+  per source, keyed on the hash of the source and its headers).
 
 Unlike the reference's bench, no port entry point falls back to the CPU
 when every probe fails: the probe exits 2, and only a caller that asks for

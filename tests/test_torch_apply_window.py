@@ -6,16 +6,25 @@ The partitioned path must be observably identical to the sequential
 ``apply_entry`` scan: the same per-tag results, the same final resource
 state and the same event streams. Budgets only defer entries across
 rounds; they never drop or reorder them within a pool.
+
+The sequential drive, the cases' oracle, depends on nothing but its seed:
+it runs in a worker process started with the session's first port file
+that runs the reference (``torch_reference.LONG_RUNS``), beside the tests
+before this file, and its results, resource leaves and events come back.
 """
+
+import os
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from copycat_tpu_torch import convert  # noqa: E402
 from copycat_tpu_torch.models import RaftGroups  # noqa: E402
 from copycat_tpu_torch.ops import apply as ap  # noqa: E402
 from copycat_tpu_torch.ops.consensus import Config  # noqa: E402
+from torch_reference import LONG_RUNS, SUITE_AHEAD  # noqa: E402
 
 
 def _drive(config: Config, seed: int) -> RaftGroups:
@@ -72,26 +81,38 @@ def _drive(config: Config, seed: int) -> RaftGroups:
 SEQUENTIAL = Config(applies_per_round=8)
 
 
-@pytest.fixture(scope="module")
-def rg_seq():
-    """The sequential drive both budget cases compare against: one
-    deterministic run, shared (the cases only read it)."""
-    return _drive(SEQUENTIAL, seed=99)
+def _observed(rg: RaftGroups) -> tuple:
+    """What the cases compare of a drive: its results, every resource
+    leaf and its session events."""
+    return rg.results, convert.flat_leaves(rg.state.resources), rg.events
+
+
+def sequential_drive() -> tuple:
+    return _observed(_drive(SEQUENTIAL, seed=99))
 
 
 @pytest.mark.parametrize("budgets", [(2,) * 8, (1, 2, 1, 3, 1, 2, 1, 1)])
-def test_partitioned_apply_matches_sequential(budgets, rg_seq):
+def test_partitioned_apply_matches_sequential(budgets):
     partitioned = SEQUENTIAL._replace(pool_budgets=budgets)
-    rg_par = _drive(partitioned, seed=99)
-    assert rg_seq.results == rg_par.results
+    par_results, par_res, par_events = _observed(_drive(partitioned,
+                                                        seed=99))
+    # the sequential drive both budget cases compare against: one
+    # deterministic run, shared (the cases only read it)
+    seq_results, seq_res, seq_events = SUITE_AHEAD.get("apply_window",
+                                                       sequential_drive)
+    assert seq_results == par_results
     # every resource leaf, TTL deadlines and wait/listener rings included
-    seq_res, par_res = rg_seq.state.resources, rg_par.state.resources
-    for name in seq_res._fields:
-        np.testing.assert_array_equal(getattr(seq_res, name).numpy(),
-                                      getattr(par_res, name).numpy(),
+    assert seq_res.keys() == par_res.keys()
+    for name in seq_res:
+        np.testing.assert_array_equal(seq_res[name], par_res[name],
                                       err_msg=name)
-    assert rg_seq.events == rg_par.events     # order included
-    assert rg_seq.events, "the stream raised no session event"
+    assert seq_events == par_events     # order included
+    assert seq_events, "the stream raised no session event"
+
+
+LONG_RUNS[f"{os.path.basename(__file__)}::"
+          "test_partitioned_apply_matches_sequential"] = [
+    ("apply_window", sequential_drive, ())]
 
 
 def test_tight_budgets_still_apply_everything():

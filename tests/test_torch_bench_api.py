@@ -8,11 +8,15 @@ tests' size through its knobs, the port's with the same parameters on
 counter and records every answer. The result keys must be the
 reference's less ``vs_baseline``, and the fields that do not depend on
 timing must be equal; the hooks' findings must show every write applied
-once and every read equal to the write before it.
+once and every read equal to the write before it. The reference's three
+scenarios run in a worker process started with the session's first port
+file (``torch_reference.LONG_RUNS``), so its knobs and the GC tuning it
+leaves behind never touch the tests' process.
 """
 
 import gc
 import json
+import os
 from collections import Counter
 
 import pytest
@@ -22,7 +26,11 @@ pytest.importorskip("torch")
 from copycat_tpu_torch import bench  # noqa: E402
 from copycat_tpu_torch.utils import platform, profiler, tracing  # noqa: E402
 
-from torch_reference import release_jax_programs  # noqa: E402,F401
+from torch_reference import (  # noqa: E402,F401
+    LONG_RUNS,
+    SUITE_AHEAD,
+    release_jax_programs,
+)
 
 SPI = dict(instances=16, bursts=2)
 APPLY = dict(groups=2, sessions=4, ops=8, bursts=2, keys=16)
@@ -37,10 +45,10 @@ DETERMINISTIC = ("metric", "unit", "on_device_instances", "pipeline_depth",
 ARTIFACT_KEYS = {"scenario", "meta", "metrics", "series", "profile"}
 
 
-@pytest.fixture(scope="module")
-def reference():
-    """The reference's three scenarios at the tests' size, once; the GC
-    tuning its scenarios leave behind is undone after."""
+def reference_scenarios() -> dict:
+    """The reference's three scenarios at the tests' size, through its
+    knobs; the knobs and the GC tuning its scenarios leave behind are
+    undone after."""
     saved = gc.get_threshold()
     with pytest.MonkeyPatch.context() as mp:
         for name, value in REFERENCE_KNOBS.items():
@@ -52,6 +60,19 @@ def reference():
         finally:
             gc.unfreeze()
             gc.set_threshold(*saved)
+
+
+@pytest.fixture(scope="module")
+def reference():
+    """The reference's three scenarios, once for the file."""
+    return SUITE_AHEAD.get("bench_api", reference_scenarios)
+
+
+_FILE = os.path.basename(__file__)
+for _test in ("test_result_keys_are_the_references",
+              "test_deterministic_fields_equal_the_references",
+              "test_metrics_json_has_the_references_artifact_keys"):
+    LONG_RUNS[f"{_FILE}::{_test}"] = [("bench_api", reference_scenarios, ())]
 
 
 @pytest.fixture(scope="module")

@@ -11,10 +11,16 @@ reference's key). Blobs cross both ways: the port's blob loads in the
 reference and the reference's in the port, every leaf equal after the
 load and after N more rounds with the same draws. Exact, integers only.
 The meshed case waits for the port's multi-device slice.
+
+The reference's engine of this file compiles its programs in a worker
+process started with the session's first port file
+(``torch_reference.LONG_RUNS``), into the session's compile cache, so the
+cases load them.
 """
 
 import io
 import json
+import os
 
 import numpy as np
 import pytest
@@ -36,6 +42,7 @@ from copycat_tpu_torch.models import BulkDriver  # noqa: E402
 from copycat_tpu_torch.models.device_resources import DeviceLock as TLock  # noqa: E402,E501
 from torch_reference import (  # noqa: E402
     DEEP_SHAPE,
+    LONG_RUNS,
     ReferenceDrawnGroups,
     as_reference_drawn,
     assert_same_state,
@@ -81,6 +88,27 @@ def restored_pair(ref_blob, port_blob):
     port = as_reference_drawn(tcheckpoint.load_bytes(port_blob, "cpu"),
                               ref._key)
     return ref, port
+
+
+def warm_reference() -> None:
+    """The reference's side of the first case up to the save, then a
+    restore stepped on: every program of the file's reference engine,
+    compiled into the session's compile cache."""
+    ref = JaxRaftGroups(G, P, log_slots=L, submit_slots=S, seed=0,
+                        config=JCFG)
+    ref.wait_for_leaders()
+    tags = [ref.submit(0, ap.OP_LONG_ADD, 2) for _ in range(5)]
+    tags += [ref.submit(1, ap.OP_MAP_PUT, 7, 70)]
+    tags += [ref.submit(1, ap.OP_LOCK_ACQUIRE, 4, -1)]
+    ref.run_until(tags)
+    ref.run(5)
+    again = jcheckpoint.load_bytes(jcheckpoint.save_bytes(ref))
+    run_ops(again, [(ap.OP_LONG_ADD, 2)])
+    run_ops(again, [(ap.OP_MAP_GET, 7), (ap.OP_LOCK_HOLDER,)], group=1)
+
+
+LONG_RUNS[f"{os.path.basename(__file__)}::test_save_load_roundtrip"] = [
+    ("checkpoint", warm_reference, ())]
 
 
 def test_save_load_roundtrip(tmp_path):

@@ -21,6 +21,7 @@ jax = pytest.importorskip("jax")
 from torch_reference import (  # noqa: E402,F401
     LONG_RUNS,
     SUITE_AHEAD,
+    as_numpy,
     release_jax_programs,
 )
 
@@ -142,7 +143,7 @@ def _reference_run(P, S, jcfg, ops):
                     installed))
         if installed is not None:
             jstate = installed
-    return run
+    return as_numpy(run)
 
 
 def _counter_config(S, lease=True):
@@ -193,7 +194,7 @@ def _step_side_by_side(P, S, jcfg, ops=_OPS, flow_control=False):
             enumerate(run[1:]):
         tstate, tout = tcons.step(
             tstate, tcons.Submits(**sub), torch.from_numpy(deliver),
-            fresh, cand, tcfg)
+            torch.from_numpy(fresh), torch.from_numpy(cand), tcfg)
         _assert_same(jout, tout, "outputs", r)
         _assert_same(jstate, tstate, "state", r)
         committed += int(np.asarray(jout.out_valid).sum())
@@ -278,7 +279,7 @@ def _ring_reference_run():
             kk, (G_, P), jcfg.timer_min, jcfg.timer_max)))
             for kk in (key_t, key_c))
         run.append((jstate, fresh, cand))
-    return run
+    return as_numpy(run)
 
 
 def test_ring_flow_control_keeps_replicas_equal():
@@ -300,6 +301,7 @@ def test_ring_flow_control_keeps_replicas_equal():
     diverged = {cfg: 0 for cfg in states}
     applied0 = states[fixed].applied_index.amax(dim=1)
     for r, (jstate, fresh, cand) in enumerate(run[1:]):
+        fresh, cand = torch.from_numpy(fresh), torch.from_numpy(cand)
         for cfg, st in states.items():
             st, out = tcons.step(st, sub, delivers[r], fresh, cand, cfg)
             states[cfg] = tcons.install_snapshots(st, out.stale, out.leader,

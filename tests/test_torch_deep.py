@@ -15,7 +15,15 @@
 
 All at G=8 × P=3, L=16, S=4 with one reference config
 (``torch_reference.deep_config``); exact, integers only.
+
+The reference's side of each case depends on nothing of the port's: it
+runs once, in a worker process started with the session's first port file
+(``torch_reference.LONG_RUNS``), and records every leaf the port's run of
+the same case is then held against, round by round
+(``torch_reference.Transcript``).
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -32,27 +40,55 @@ from copycat_tpu_torch import convert  # noqa: E402
 from copycat_tpu_torch.ops import consensus as tcons  # noqa: E402
 from torch_reference import (  # noqa: E402
     DEEP_SHAPE,
+    LONG_RUNS,
+    SUITE_AHEAD,
+    Transcript,
     assert_same_leaves,
-    assert_same_state,
     deep_config,
-    engine_pair,
     isolate,
+    port_engine,
+    reference_engine,
+    state_leaves,
 )
 
 G, P = DEEP_SHAPE["groups"], DEEP_SHAPE["peers"]
 L, S = DEEP_SHAPE["log_slots"], DEEP_SHAPE["submit_slots"]
 
 
-class Lockstep:
-    """Both engines stepped one raw round at a time on the same submits
-    and delivery; every output and state leaf compared each round."""
+def _empty():
+    """An empty round of submits, as the reference's engine builds it."""
+    z = np.zeros((G, S), np.int32)
+    return jcons.Submits(opcode=z.copy(), a=z.copy(), b=z.copy(),
+                         c=z.copy(), tag=z.copy(),
+                         valid=np.zeros((G, S), bool))
 
-    def __init__(self, seed):
-        self.ref, self.port = engine_pair(seed)
+
+def _as_numpy(x):
+    """Step outputs (either package's) as a dict of numpy arrays by field
+    name, nested blocks as dicts."""
+    if x is None:
+        return None
+    if hasattr(x, "_asdict"):
+        return {k: _as_numpy(v) for k, v in x._asdict().items()}
+    return convert.to_numpy(x) if isinstance(x, torch.Tensor) \
+        else np.asarray(x)
+
+
+class Lockstep:
+    """One engine of a lockstep pair stepped one raw round at a time on
+    given submits and delivery: the reference's run (``record`` None)
+    records every output and state leaf each round; the port's run of the
+    same script is held against that record, leaf by leaf."""
+
+    def __init__(self, seed, record=None):
+        self.replay = record is not None
+        self.rg = (port_engine if self.replay else reference_engine)(seed)
+        self.check = Transcript(record)
+        self.check(state_leaves(self.rg), "leaders elected")
         self.rounds = 0
 
     def window(self, group, tags, opcode=jap.OP_LONG_ADD, a=1):
-        sub = self.ref._empty_submits()
+        sub = _empty()
         for s, t in enumerate(tags):
             sub.opcode[group, s] = opcode
             sub.a[group, s] = a
@@ -61,23 +97,28 @@ class Lockstep:
         return sub
 
     def step(self, sub=None, deliver=None):
-        ref, port = self.ref, self.port
-        sub = ref._empty_submits() if sub is None else sub
+        rg = self.rg
+        sub = _empty() if sub is None else sub
         dl = np.ones((G, P, P), bool) if deliver is None else deliver
-        ref._key, key = jax.random.split(ref._key)
-        ref.state, jout = ref._step(ref.state, sub, jax.numpy.asarray(dl),
-                                    key)
-        fresh, cand = port._draw_timers()
-        port.state, tout = tcons.step(
-            port.state, convert.submits_to_torch(sub._asdict(), "cpu"),
-            torch.from_numpy(dl), fresh, cand, port.config)
+        if self.replay:
+            fresh, cand = rg._draw_timers()
+            rg.state, out = tcons.step(
+                rg.state, convert.submits_to_torch(sub._asdict(), "cpu"),
+                torch.from_numpy(dl), fresh, cand, rg.config)
+        else:
+            rg._key, key = jax.random.split(rg._key)
+            rg.state, out = rg._step(rg.state, sub, jax.numpy.asarray(dl),
+                                     key)
         self.rounds += 1
-        assert_same_leaves(jout, tout, f"outputs round {self.rounds}")
-        assert_same_state(ref, port, f"round {self.rounds}")
-        return convert.to_numpy(tout)
+        self.check(convert.flat_leaves(out), f"outputs round {self.rounds}")
+        self.check(state_leaves(rg), f"round {self.rounds}")
+        return _as_numpy(out)
 
     def leader(self, g):
-        return self.ref.leader(g)
+        return self.rg.leader(g)
+
+    def values(self):
+        return state_leaves(self.rg)["resources.value"]
 
 
 def _cut(victims):
@@ -129,7 +170,7 @@ def uncommitted_tail_lost(ls, seen):
                     ["accepted"][0])
     for _ in range(10):
         ls.step()
-    seen.append(ls.port.state.resources.value.numpy()[0])
+    seen.append(ls.values()[0])
 
 
 def committed_dedup_after_failover(ls, seen):
@@ -143,28 +184,35 @@ def committed_dedup_after_failover(ls, seen):
     seen.append(ls.step(ls.window(0, [1, 2]), deliver=cut)["accepted"][0])
     for _ in range(8):
         ls.step()
-    seen.append(ls.port.state.resources.value.numpy()[0])
+    seen.append(ls.values()[0])
 
 
-@pytest.mark.parametrize("script", [
-    dense_duplicates_gaps, election_noop_mid_stream,
-    uncommitted_tail_lost, committed_dedup_after_failover],
-    ids=lambda f: f.__name__)
-def test_monotone_gate_matches_reference(script):
-    ls = Lockstep(seed=7)
+GATE_SCRIPTS = [dense_duplicates_gaps, election_noop_mid_stream,
+                uncommitted_tail_lost, committed_dedup_after_failover]
+
+
+def _gate(script, record=None):
+    ls = Lockstep(seed=7, record=record)
     seen = []
     script(ls, seen)
+    return ls, seen
+
+
+@pytest.mark.parametrize("script", GATE_SCRIPTS, ids=lambda f: f.__name__)
+def test_monotone_gate_matches_reference(script):
+    ls, seen = _gate(script, SUITE_AHEAD.get("deep", _reference_runs)[
+        script.__name__])
+    ls.check.done()
     accepted = [x for x in seen if x.dtype == bool]
     assert any(x.any() for x in accepted), "the gate accepted nothing"
     assert any(not x.all() for x in accepted), "the gate rejected nothing"
 
 
-def test_every_telemetry_leaf_under_partitions():
+def _telemetry_partitions(record=None):
     """30 rounds of dense-tag submits under random message loss and a
-    stretch where each group's leader is isolated: every telemetry leaf
-    (and every other leaf) equal, and the block saw elections, leaderless
-    rounds, rejections and commits."""
-    ls = Lockstep(seed=3)
+    stretch where each group's leader is isolated; returns the engine and
+    the telemetry block's totals."""
+    ls = Lockstep(seed=3, record=record)
     rng = np.random.default_rng(5)
     nxt = np.ones(G, np.int64)
     totals = {}
@@ -175,7 +223,7 @@ def test_every_telemetry_leaf_under_partitions():
             dl = leaders_cut
         else:
             dl = rng.random((G, P, P)) < 0.85
-        sub = ls.ref._empty_submits()
+        sub = _empty()
         sub.opcode[:] = jap.OP_LONG_ADD
         sub.a[:] = 1
         sub.tag[:] = nxt[:, None] + np.arange(S)
@@ -184,6 +232,17 @@ def test_every_telemetry_leaf_under_partitions():
         nxt += out["accepted"].sum(axis=1)
         for k, v in out["telemetry"].items():
             totals[k] = totals.get(k, 0) + int(np.asarray(v).sum())
+    return ls, totals
+
+
+def test_every_telemetry_leaf_under_partitions():
+    """30 rounds of dense-tag submits under random message loss and a
+    stretch where each group's leader is isolated: every telemetry leaf
+    (and every other leaf) equal, and the block saw elections, leaderless
+    rounds, rejections and commits."""
+    ls, totals = _telemetry_partitions(SUITE_AHEAD.get(
+        "deep", _reference_runs)["telemetry"])
+    ls.check.done()
     for k in ("elections_started", "leaderless", "submit_rejections",
               "commit_advance"):
         assert totals[k] > 0, (k, totals)
@@ -264,22 +323,40 @@ def _accumulators(B):
             np.full((G, B), 2 ** 30, np.int32), np.zeros(G, bool))
 
 
-def test_deep_step_both_forms_match_reference():
-    """Eight rounds of dense windows through the reference's deep_step
-    (scatter) and the port's in both forms, from one state: equal state,
-    accumulators, events and telemetry after every round."""
-    ref, port = engine_pair(seed=9)
+def _reference_deep_step() -> tuple:
+    """The reference's side of the deep_step case: its elected state, and
+    per round its state, outputs and accumulators after its deep_step."""
+    ref = reference_engine(9)
+    elected = state_leaves(ref)
     rng = np.random.default_rng(2)
     base = np.zeros(G, np.int32)
     jprog = jbulk._deep_program(ref.config)
     jacc = _accumulators(B)
-    tacc = {oh: convert.deep_to_torch(_accumulators(B), "cpu")
-            for oh in (False, True)}
-    tstate = {oh: port.state for oh in (False, True)}
+    rounds = []
     for r, sub in enumerate(_dense_windows(base, 8, rng)):
         ref._key, key = jax.random.split(ref._key)
         ref.state, *jacc, jout = jprog(ref.state, *jacc, base, np.int32(r),
                                        sub, ref.deliver, key)
+        rounds.append((state_leaves(ref), convert.flat_leaves(jout),
+                       tuple(np.asarray(x) for x in jacc)))
+    return elected, rounds
+
+
+def test_deep_step_both_forms_match_reference():
+    """Eight rounds of dense windows through the reference's deep_step
+    (scatter) and the port's in both forms, from one state: equal state,
+    accumulators, events and telemetry after every round."""
+    elected, rounds = SUITE_AHEAD.get("deep", _reference_runs)["deep_step"]
+    port = port_engine(9)
+    assert_same_leaves(elected, state_leaves(port), "leaders elected")
+    rng = np.random.default_rng(2)
+    base = np.zeros(G, np.int32)
+    tacc = {oh: convert.deep_to_torch(_accumulators(B), "cpu")
+            for oh in (False, True)}
+    tstate = {oh: port.state for oh in (False, True)}
+    windows = _dense_windows(base, 8, rng)
+    assert len(windows) == len(rounds)
+    for r, (sub, (jstate, jout, jacc)) in enumerate(zip(windows, rounds)):
         fresh, cand = port._draw_timers()
         for oh in (False, True):
             tstate[oh], *acc, tout = tcons.deep_step(
@@ -288,10 +365,30 @@ def test_deep_step_both_forms_match_reference():
                 port.deliver, fresh, cand, port.config, onehot=oh)
             tacc[oh] = tuple(acc)
             what = f"onehot={oh} round {r}"
-            assert_same_leaves(ref.state, tstate[oh], f"state {what}")
-            assert_same_leaves(jout, tout, f"outputs {what}")
-            _same(tuple(jacc), tacc[oh], f"accumulators {what}")
-    assert np.asarray(jacc[1]).any(), "no result was accumulated"
+            assert_same_leaves(jstate, convert.flat_leaves(tstate[oh]),
+                               f"state {what}")
+            assert_same_leaves(jout, convert.flat_leaves(tout),
+                               f"outputs {what}")
+            _same(jacc, tacc[oh], f"accumulators {what}")
+    assert rounds[-1][2][1].any(), "no result was accumulated"
+
+
+def _reference_deep_scan() -> tuple:
+    """The reference's side of the deep_scan case: its elected state, and
+    the scan's state, accumulators, stacked events and telemetry."""
+    ref = reference_engine(13)
+    elected = state_leaves(ref)
+    rng = np.random.default_rng(4)
+    base = np.zeros(G, np.int32)
+    windows = _dense_windows(base, 3, rng) + [_idle()] * 3
+    stacked = jcons.Submits(*(np.stack(x) for x in zip(*windows)))
+    ref._key, key = jax.random.split(ref._key)
+    jres = jbulk._deep_scan_program(ref.config)(
+        ref.state, *_accumulators(B), base, stacked, ref.deliver, key)
+    return elected, (convert.flat_leaves(jres[0]),
+                     tuple(np.asarray(x) for x in jres[1:5]),
+                     tuple(np.asarray(x) for x in jres[5]),
+                     convert.flat_leaves(jres[6]))
 
 
 def test_deep_scan_matches_reference():
@@ -300,21 +397,40 @@ def test_deep_scan_matches_reference():
     through the reference's ``deep_scan`` and the port's, with the draws
     taken first: equal state, accumulators, stacked events and stacked
     telemetry."""
-    ref, port = engine_pair(seed=13)
+    elected, (jstate, jacc, jevents, jtel) = SUITE_AHEAD.get(
+        "deep", _reference_runs)["deep_scan"]
+    port = port_engine(13)
+    assert_same_leaves(elected, state_leaves(port), "leaders elected")
     rng = np.random.default_rng(4)
     base = np.zeros(G, np.int32)
     windows = _dense_windows(base, 3, rng) + [_idle()] * 3
     stacked = jcons.Submits(*(np.stack(x) for x in zip(*windows)))
-    ref._key, key = jax.random.split(ref._key)
-    jres = jbulk._deep_scan_program(ref.config)(
-        ref.state, *_accumulators(B), base, stacked, ref.deliver, key)
     tres = tcons.deep_scan(
         port.state, *convert.deep_to_torch(_accumulators(B), "cpu"),
         torch.from_numpy(base), convert.submits_to_torch(
             stacked._asdict(), "cpu"), port.deliver,
         port._draw_rounds(len(windows)), port.config)
-    assert_same_leaves(jres[0], tres[0], "state")
-    _same(tuple(jres[1:5]), tres[1:5], "accumulators")
-    _same(tuple(jres[5]), tres[5], "stacked events")
-    assert_same_leaves(jres[6], tres[6], "stacked telemetry")
-    assert np.asarray(jres[2]).sum() > 0, "no result was accumulated"
+    assert_same_leaves(jstate, convert.flat_leaves(tres[0]), "state")
+    _same(jacc, tres[1:5], "accumulators")
+    _same(jevents, tres[5], "stacked events")
+    assert_same_leaves(jtel, convert.flat_leaves(tres[6]),
+                       "stacked telemetry")
+    assert jacc[1].sum() > 0, "no result was accumulated"
+
+
+def _reference_runs() -> dict:
+    """Every case's reference side, in one worker: they share the
+    reference's compiled programs."""
+    runs = {f.__name__: _gate(f)[0].check.values for f in GATE_SCRIPTS}
+    runs["telemetry"] = _telemetry_partitions()[0].check.values
+    runs["deep_step"] = _reference_deep_step()
+    runs["deep_scan"] = _reference_deep_scan()
+    return runs
+
+
+LONG_RUNS.update({f"{os.path.basename(__file__)}::{test}": [
+    ("deep", _reference_runs, ())] for test in (
+        "test_monotone_gate_matches_reference",
+        "test_every_telemetry_leaf_under_partitions",
+        "test_deep_step_both_forms_match_reference",
+        "test_deep_scan_matches_reference")})

@@ -74,7 +74,10 @@ from copycat_tpu_torch.testing.counter_machine import (  # noqa: E402
 )
 
 from helpers import async_test  # noqa: E402
-from torch_reference import release_jax_programs  # noqa: E402,F401
+from torch_reference import (  # noqa: E402,F401
+    no_leaked_profiler,
+    release_jax_programs,
+)
 
 MACHINE_SPEC = "copycat_tpu_torch.testing.counter_machine:counter_machine"
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -12,8 +12,14 @@ own server stack on the port's engine.
 One engine shape for the file (capacity 64, P=3, L=32, S=4, the value,
 lock and election pools: the map, set, queue, multimap and topic pools
 compiled out), so the reference compiles its programs once.
+
+Each script's reference side depends on nothing of the port's: it runs
+once, in a worker process started with the session's first port file
+(``torch_reference.LONG_RUNS``), and what it returned and its engine's
+warm-up and end come back to the case, which runs the port's side.
 """
 
+import os
 import random
 
 import numpy as np
@@ -28,9 +34,12 @@ from copycat_tpu_torch.ops import apply as ap  # noqa: E402
 
 from helpers import async_test  # noqa: E402
 from torch_reference import (  # noqa: E402,F401
+    LONG_RUNS,
+    SUITE_AHEAD,
     ReferenceDrawnGroups,
     assert_same_state,
     release_jax_programs,
+    state_leaves,
 )
 
 SHAPE = dict(capacity=64, num_peers=3, log_slots=32, submit_slots=4)
@@ -38,28 +47,42 @@ POOLS = dict(map_slots=0, set_slots=0, queue_slots=0, multimap_slots=0,
              topic_slots=0)
 
 
-def _engines():
-    """The reference's engine and the port's, warmed up (leaders elected)
-    on the same draws, with equal state."""
+def _reference_engine():
+    """The reference's engine, warmed up (leaders elected)."""
     ref = ref_dx.DeviceEngine(ref_dx.DeviceEngineConfig(
         **SHAPE, resource=jap.ResourceConfig(**POOLS)))
+    ref._ensure()
+    return ref
+
+
+def _port_engine(jcfg, warm):
+    """The port's engine warmed up on the draws of the reference's, whose
+    ``RaftGroups`` config is ``jcfg``: its state must equal the reference
+    engine's after its warm-up (``warm``, its :func:`_view`)."""
     port = dx.DeviceEngine(dx.DeviceEngineConfig(
         **SHAPE, resource=ap.ResourceConfig(**POOLS), device="cpu"))
-    rg = ref._ensure()
     port._groups = ReferenceDrawnGroups(
         SHAPE["capacity"], SHAPE["num_peers"], SHAPE["log_slots"],
-        SHAPE["submit_slots"], rg.config, seed=port.config.seed)
+        SHAPE["submit_slots"], jcfg, seed=port.config.seed)
     port._groups.wait_for_leaders(max_rounds=200)
     assert port._ensure() is port._groups
-    _same(ref, port, "warm-up")
-    return ref, port
+    _same(warm, port, "warm-up")
+    return port
 
 
-def _same(ref, port, what):
-    assert port._groups.rounds == ref._groups.rounds, what
-    assert_same_state(ref._groups, port._groups, what)
-    assert port._groups.results == ref._groups.results, what
-    assert port._groups.events == ref._groups.events, what
+def _view(engine) -> tuple:
+    """An engine's ``RaftGroups`` as the cases compare them: rounds, state
+    leaves, results and events."""
+    rg = engine._groups
+    return rg.rounds, state_leaves(rg), dict(rg.results), dict(rg.events)
+
+
+def _same(want, port, what):
+    rounds, leaves, results, events = want
+    assert port._groups.rounds == rounds, what
+    assert_same_state(leaves, port._groups, what)
+    assert port._groups.results == results, what
+    assert port._groups.events == events, what
 
 
 def _one_add(mod, engine, group, amount):
@@ -200,15 +223,37 @@ SCRIPTS = {
 }
 
 
+def _reference_script(name: str) -> tuple:
+    """The reference's side of one script: its ``RaftGroups`` config, its
+    engine after the warm-up, what the script returned, and its engine
+    after."""
+    ref = _reference_engine()
+    warm = _view(ref)
+    want = SCRIPTS[name](ref_dx, ref)
+    return ref._groups.config, warm, want, _view(ref)
+
+
 @pytest.mark.parametrize("name", list(SCRIPTS))
 def test_engine_script_matches_reference(name):
     """One script on both engines: equal results, equal round counts and
     equal ``RaftGroups`` leaves afterwards."""
-    ref, port = _engines()
-    want = SCRIPTS[name](ref_dx, ref)
+    jcfg, warm, want, end = SUITE_AHEAD.get("device_engine",
+                                            _reference_scripts)[name]
+    port = _port_engine(jcfg, warm)
     got = SCRIPTS[name](dx, port)
     assert got == want, name
-    _same(ref, port, name)
+    _same(end, port, name)
+
+
+def _reference_scripts() -> dict:
+    """Every script's reference side, in one worker: they share the
+    reference's compiled programs."""
+    return {name: _reference_script(name) for name in SCRIPTS}
+
+
+LONG_RUNS[f"{os.path.basename(__file__)}::"
+          "test_engine_script_matches_reference"] = [
+    ("device_engine", _reference_scripts, ())]
 
 
 def test_engine_raises_for_a_mesh():

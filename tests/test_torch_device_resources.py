@@ -19,7 +19,15 @@ the overflow pair, and budgeted pools. Leaders are elected once per
 config: each script starts from the two packages' checkpoints of that
 state. The lock hand-off through grant events, the election
 hand-off and the topic fan-out are among the scripts.
+
+The reference's side of every script depends on nothing of the port's, so
+it runs once for the file, in order, in a worker process started with the
+session's first port file (``torch_reference.LONG_RUNS``): its
+observations, rounds, events and final state come back to each case,
+which runs the port's side and compares.
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -40,9 +48,12 @@ from copycat_tpu_torch import convert  # noqa: E402
 from copycat_tpu_torch.models import checkpoint as tcheckpoint  # noqa: E402
 from copycat_tpu_torch.models import device_resources as tdr  # noqa: E402
 from torch_reference import (  # noqa: E402
+    LONG_RUNS,
+    SUITE_AHEAD,
     ReferenceDrawnGroups,
     as_reference_drawn,
     assert_same_state,
+    state_leaves,
 )
 
 FAIL = ap.FAIL
@@ -71,34 +82,70 @@ REF = Package(jdr, jnp.asarray)
 PORT = Package(tdr, torch.from_numpy)
 
 
-_ELECTED: dict = {}
+def _engine_key(cfg, shape):
+    return cfg, tuple(sorted({**SHAPE, **shape}.items()))
 
 
-def pair(cfg=JCFG, seed=5, leaders=True, **shape):
-    """The two engines from one seed. With ``leaders``, every group's
-    leader is elected once per config and shape; each later pair is
-    restored from the two packages' checkpoints of that state (the port's
-    drawing on from the reference's restored key)."""
+_REF_ELECTED: dict = {}
+
+
+def reference_engine(cfg=JCFG, seed=5, leaders=True, **shape):
+    """The reference's engine. With ``leaders``, every group's leader is
+    elected once per config and shape; each later engine is restored from
+    the reference's checkpoint of that state."""
     s = {**SHAPE, **shape}
-    key = (cfg, tuple(sorted(s.items())))
-    if leaders and key in _ELECTED:
-        jblob, tblob = _ELECTED[key]
-        ref = jcheckpoint.load_bytes(jblob)
-        port = as_reference_drawn(tcheckpoint.load_bytes(tblob, "cpu"),
-                                  ref._key)
-        return ref, port
+    key = _engine_key(cfg, shape)
+    if leaders and key in _REF_ELECTED:
+        return jcheckpoint.load_bytes(_REF_ELECTED[key])
     ref = JaxRaftGroups(s["groups"], s["peers"], log_slots=s["log_slots"],
                         submit_slots=s["submit_slots"], seed=seed,
                         config=cfg)
+    if leaders:
+        ref.wait_for_leaders()
+        _REF_ELECTED[key] = jcheckpoint.save_bytes(ref)
+    return ref
+
+
+def reference_scripts() -> dict:
+    """The reference's side of every script, in ``SCRIPTS`` order as the
+    cases run them: ``elected`` holds, per config and shape, the state
+    leaves and engine key right after the election; ``runs`` each
+    script's observations, rounds, events and final state leaves."""
+    elected, runs = {}, {}
+    for script, (cfg, shape, leaders) in SCRIPTS.items():
+        key = _engine_key(cfg, shape)
+        fresh = leaders and key not in _REF_ELECTED
+        ref = reference_engine(cfg, leaders=leaders, **shape)
+        if fresh:
+            elected[key] = (state_leaves(ref), np.asarray(ref._key))
+        want = script(ref, REF)
+        runs[script.__name__] = (want, ref.rounds, ref.events,
+                                 state_leaves(ref))
+    return {"elected": elected, "runs": runs}
+
+
+_PORT_ELECTED: dict = {}
+
+
+def port_engine(elected, cfg=JCFG, seed=5, leaders=True, **shape):
+    """The port's engine drawing the reference's timers from the same
+    seed. With ``leaders``, every group's leader is elected once per
+    config and shape, and the state must equal the reference's
+    ``elected`` one; each later engine is restored from the port's
+    checkpoint of that state, drawing on from the reference's key."""
+    s = {**SHAPE, **shape}
+    key = _engine_key(cfg, shape)
+    if leaders and key in _PORT_ELECTED:
+        return as_reference_drawn(
+            tcheckpoint.load_bytes(_PORT_ELECTED[key], "cpu"),
+            elected[key][1])
     port = ReferenceDrawnGroups(s["groups"], s["peers"], s["log_slots"],
                                 s["submit_slots"], cfg, seed=seed)
     if leaders:
-        ref.wait_for_leaders()
         port.wait_for_leaders()
-        assert_same_state(ref, port, "leaders elected")
-        _ELECTED[key] = (jcheckpoint.save_bytes(ref),
-                         tcheckpoint.save_bytes(port))
-    return ref, port
+        assert_same_state(elected[key][0], port, "leaders elected")
+        _PORT_ELECTED[key] = tcheckpoint.save_bytes(port)
+    return port
 
 
 def run_ops(rg, ops, group=0):
@@ -673,12 +720,18 @@ SCRIPTS = {
 }
 
 
+LONG_RUNS[f"{os.path.basename(__file__)}::"
+          "test_facade_script_matches_reference"] = [
+    ("device_resources", reference_scripts, ())]
+
+
 @pytest.mark.parametrize("script", list(SCRIPTS), ids=lambda f: f.__name__)
 def test_facade_script_matches_reference(script):
     cfg, shape, leaders = SCRIPTS[script]
-    ref, port = pair(cfg, leaders=leaders, **shape)
-    want = script(ref, REF)
+    ref = SUITE_AHEAD.get("device_resources", reference_scripts)
+    port = port_engine(ref["elected"], cfg, leaders=leaders, **shape)
+    want, rounds, events_, leaves = ref["runs"][script.__name__]
     got = script(port, PORT)
     assert got == want
-    assert port.rounds == ref.rounds and port.events == ref.events
-    assert_same_state(ref, port, script.__name__)
+    assert port.rounds == rounds and port.events == events_
+    assert_same_state(leaves, port, script.__name__)

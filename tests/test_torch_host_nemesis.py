@@ -79,7 +79,10 @@ from torch_port_fixtures import (  # noqa: E402
     create_cluster,
     server_for,
 )
-from torch_reference import release_jax_programs  # noqa: E402,F401
+from torch_reference import (  # noqa: E402,F401
+    no_leaked_profiler,
+    release_jax_programs,
+)
 
 LEVELS = (StorageLevel.DISK, StorageLevel.MAPPED)
 

@@ -6,14 +6,25 @@ jnp selection and against the Pallas kernel in interpret mode, exactly
 (int32). The CUDA kernel itself is held against the plain version by the
 ``cuda``-marked test in ``test_torch_package.py`` (which imports no JAX,
 so it runs on a card's machine) and by ``chip_smoke.py``.
+
+The reference's selections and Pallas runs depend on nothing of the
+port's: they run once, in a worker process started with the session's
+first port file (``torch_reference.LONG_RUNS``), and come back to the
+cases.
 """
+
+import os
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
-from torch_reference import release_jax_programs  # noqa: E402,F401
+from torch_reference import (  # noqa: E402,F401
+    LONG_RUNS,
+    SUITE_AHEAD,
+    release_jax_programs,
+)
 import jax.numpy as jnp  # noqa: E402
 
 from copycat_tpu.ops.pallas_kernels import (  # noqa: E402
@@ -37,23 +48,85 @@ def _with_edges(x: np.ndarray, rng) -> np.ndarray:
     return x
 
 
-@pytest.mark.parametrize("P,k", [(3, 2), (5, 3), (7, 4), (4, 1), (3, 3)])
-def test_kth_largest_matches_jnp(P, k):
+NARROW_TALLY = [(3, 2), (5, 3), (7, 4), (4, 1), (3, 3)]
+PALLAS_GROUPS = [64, 512, 1000]
+
+
+def _narrow_rows(P, k):
     rng = np.random.default_rng(P * 10 + k)
-    x = _with_edges(rng.integers(-100, 100, (257, P)).astype(np.int32), rng)
-    want = np.asarray(jkth(jnp.asarray(x), k))
+    return _with_edges(rng.integers(-100, 100, (257, P)).astype(np.int32),
+                       rng)
+
+
+def _pallas_rows(G):
+    rng = np.random.default_rng(G)
+    return _with_edges(rng.integers(0, 1 << 20, (G, 3)).astype(np.int32),
+                       rng)
+
+
+def _wide_rows(P, k):
+    rng = np.random.default_rng(P * 100 + k)
+    return _with_edges(rng.integers(-100, 100, (257, P)).astype(np.int32),
+                       rng)
+
+
+def _reference_tallies() -> dict:
+    """The reference's answers for every tally case: the jnp selection
+    and, where a case holds the port against it, the Pallas kernel in
+    interpret mode."""
+    out = {}
+    for P, k in NARROW_TALLY:
+        out["jnp", P, k] = np.asarray(jkth(jnp.asarray(_narrow_rows(P, k)),
+                                           k))
+    for G in PALLAS_GROUPS:
+        out["pallas", G] = np.asarray(kth_largest_pallas(
+            jnp.asarray(_pallas_rows(G)), 2, block=256, interpret=True))
+    for P, k in WIDE_TALLY:
+        x = jnp.asarray(_wide_rows(P, k))
+        out["wide", P, k] = (np.asarray(jkth(x, k)), np.asarray(
+            kth_largest_pallas(x, k, block=256, interpret=True))
+            if P in (16, 33) else None)
+    return out
+
+
+@pytest.mark.parametrize("P,k", NARROW_TALLY)
+def test_kth_largest_matches_jnp(P, k):
+    x = _narrow_rows(P, k)
+    want = SUITE_AHEAD.get("kernels", _reference_tallies)["jnp", P, k]
     got = kernels.kth_largest(torch.from_numpy(x), k).numpy()
     assert got.dtype == want.dtype
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(got, np.sort(x, axis=1)[:, ::-1][:, k - 1])
 
 
-@pytest.mark.parametrize("G", [64, 512, 1000])
+# past the unrolled kernels (P <= 8): the warp tiles' edges (16 and 32
+# lanes a tile, 17 and 33 just past them) and two lanes a thread (64)
+WIDE_TALLY = [(P, k) for P in (9, 16, 17, 32, 33, 64)
+              for k in sorted({1, P // 2 + 1, P})]
+
+
+@pytest.mark.parametrize("P,k", WIDE_TALLY)
+def test_wide_kth_largest_matches_the_reference(P, k):
+    """More than 8 peers, the shapes the card runs on warp tiles: the
+    port's tally equals the jnp selection, and at P = 16 and 33 the Pallas
+    kernel in interpret mode, exactly, on rows with duplicates and INT_MIN
+    lanes."""
+    x = _wide_rows(P, k)
+    want, pallas = SUITE_AHEAD.get("kernels", _reference_tallies)[
+        "wide", P, k]
+    got = kernels.kth_largest(torch.from_numpy(x), k).numpy()
+    assert got.dtype == np.int32
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, np.sort(x, axis=1)[:, ::-1][:, k - 1])
+    assert (pallas is not None) == (P in (16, 33))
+    if pallas is not None:
+        np.testing.assert_array_equal(got, pallas)
+
+
+@pytest.mark.parametrize("G", PALLAS_GROUPS)
 def test_kth_largest_matches_pallas_interpret(G):
-    rng = np.random.default_rng(G)
-    x = _with_edges(rng.integers(0, 1 << 20, (G, 3)).astype(np.int32), rng)
-    want = np.asarray(kth_largest_pallas(jnp.asarray(x), 2, block=256,
-                                         interpret=True))
+    x = _pallas_rows(G)
+    want = SUITE_AHEAD.get("kernels", _reference_tallies)["pallas", G]
     got = kernels.kth_largest(torch.from_numpy(x), 2).numpy()
     np.testing.assert_array_equal(got, want)
 
@@ -115,3 +188,10 @@ def test_library_path_is_keyed_on_source(tmp_path):
     a.write_text("// two")
     assert kernels.library_path(a) != first
     assert first.parent == kernels.BUILD_DIR
+
+
+LONG_RUNS.update({f"{os.path.basename(__file__)}::{test}": [
+    ("kernels", _reference_tallies, ())] for test in (
+        "test_kth_largest_matches_jnp",
+        "test_wide_kth_largest_matches_the_reference",
+        "test_kth_largest_matches_pallas_interpret")})

@@ -18,8 +18,14 @@ over the P lanes, changed by single-server ``OP_CFG_ADD`` /
   lease-under-churn scenario (``tests/test_lease_churn.py``: a leader
   islanded with a quorum of its first config but not of its active one
   loses its lease) with equal leases, voter sets, reads and final state.
+
+Each reference side depends on nothing of the port's: it runs once, in a
+worker process started with the session's first port file
+(``torch_reference.LONG_RUNS``), and records what the port's run is then
+held against, round by round (``torch_reference.Transcript``).
 """
 
+import os
 from functools import partial
 
 import numpy as np
@@ -37,10 +43,13 @@ from copycat_tpu_torch import bench, convert  # noqa: E402
 from copycat_tpu_torch.models import RaftGroups  # noqa: E402
 from copycat_tpu_torch.ops import consensus as tcons  # noqa: E402
 from torch_reference import (  # noqa: E402
+    LONG_RUNS,
+    SUITE_AHEAD,
     ReferenceDrawnGroups,
-    assert_same_leaves,
-    assert_same_state,
+    Transcript,
+    assert_same_value,
     isolate,
+    state_leaves,
 )
 
 G, P, L, S = 16, 5, 16, 4
@@ -121,45 +130,78 @@ def _run_plans(step_both, rounds=90, seed=0):
 
 def _draws(key, cfg):
     key_t, key_c = jax.random.split(key)
-    return tuple(torch.tensor(np.asarray(jax.random.randint(
-        k, (G, P), cfg.timer_min, cfg.timer_max))) for k in (key_t, key_c))
+    return tuple(np.asarray(jax.random.randint(
+        k, (G, P), cfg.timer_min, cfg.timer_max)) for k in (key_t, key_c))
+
+
+def _reference_dynamic_step() -> dict:
+    """The reference's side of ``test_dynamic_step_matches_reference``:
+    the initial state, and per round the submits, delivery mask, timer
+    draws, outputs, state and installed state (or ``None``) as leaves;
+    what the plans saw, and the final member words."""
+    key = jax.random.PRNGKey(7)
+    key, init_key = jax.random.split(key)
+    members = np.arange(P) < VOTERS
+    jstate = jcons.init_state(G, P, L, init_key, JCFG, members=members)
+    jstep = jax.jit(partial(jcons.step, config=JCFG))
+    jinstall = jax.jit(partial(jcons.install_snapshots, config=JCFG))
+    st = {"j": jstate, "key": key}
+    rounds = []
+
+    def step_ref(sub, deliver):
+        st["key"], k = jax.random.split(st["key"])
+        js, jout = jstep(st["j"], jcons.Submits(**sub), deliver, k)
+        installed = (jinstall(js, jout.stale, jout.leader)
+                     if np.asarray(jout.stale).any() else None)
+        rounds.append((sub, deliver, _draws(k, JCFG),
+                       convert.flat_leaves(jout), convert.flat_leaves(js),
+                       None if installed is None
+                       else convert.flat_leaves(installed)))
+        st["j"] = js if installed is None else installed
+        return jout, np.asarray(jout.leader)
+
+    seen = _run_plans(step_ref)
+    return {"init": convert.flat_leaves(jstate), "rounds": rounds,
+            "seen": seen, "member": np.asarray(st["j"].member)}
 
 
 def test_dynamic_step_matches_reference():
     tcfg = convert.config_to_torch(JCFG)
     assert tcfg.dynamic_membership and not tcfg.ring_flow_control
-    key = jax.random.PRNGKey(7)
-    key, init_key = jax.random.split(key)
+    ref = SUITE_AHEAD.get("membership", _reference_runs)["step"]
     members = np.arange(P) < VOTERS
-    jstate = jcons.init_state(G, P, L, init_key, JCFG, members=members)
-    tstate = tcons.init_state(G, P, L, torch.tensor(
-        np.asarray(jstate.timer)), tcfg, members=members)
-    assert_same_leaves(jstate, tstate, "init")
-    jstep = jax.jit(partial(jcons.step, config=JCFG))
-    jinstall = jax.jit(partial(jcons.install_snapshots, config=JCFG))
-    st = {"j": jstate, "t": tstate, "key": key, "r": 0, "installs": 0}
+    tstate = tcons.init_state(G, P, L, torch.tensor(ref["init"]["timer"]),
+                              tcfg, members=members)
+    assert_same_value(ref["init"], convert.flat_leaves(tstate), "init")
+    rounds = iter(ref["rounds"])
+    st = {"t": tstate, "r": 0, "installs": 0}
 
     def step_both(sub, deliver):
-        st["key"], k = jax.random.split(st["key"])
-        js, jout = jstep(st["j"], jcons.Submits(**sub), deliver, k)
+        rsub, rdeliver, draws, jout, js, installed = next(rounds)
+        what = f"round {st['r']}"
+        assert_same_value(rsub, sub, f"submits {what}")
+        np.testing.assert_array_equal(deliver, rdeliver, err_msg=what)
         ts, tout = tcons.step(st["t"], tcons.Submits(**{
             n: torch.from_numpy(v) for n, v in sub.items()}),
-            torch.from_numpy(deliver), *_draws(k, JCFG), tcfg)
-        assert_same_leaves(jout, tout, f"outputs round {st['r']}")
-        assert_same_leaves(js, ts, f"state round {st['r']}")
-        if np.asarray(jout.stale).any():
-            js = jinstall(js, jout.stale, jout.leader)
+            torch.from_numpy(deliver), *map(torch.tensor, draws), tcfg)
+        assert_same_value(jout, convert.flat_leaves(tout), f"outputs {what}")
+        assert_same_value(js, convert.flat_leaves(ts), f"state {what}")
+        assert (installed is not None) == bool(tout.stale.any()), what
+        if installed is not None:
             ts = tcons.install_snapshots(ts, tout.stale, tout.leader, tcfg)
-            assert_same_leaves(js, ts, f"installed round {st['r']}")
+            assert_same_value(installed, convert.flat_leaves(ts),
+                              f"installed {what}")
             st["installs"] += 1
-        st["j"], st["t"] = js, ts
+        st["t"] = ts
         st["r"] += 1
-        return jout, np.asarray(jout.leader)
+        return tout, tout.leader.numpy()
 
     seen = _run_plans(step_both)
+    assert next(rounds, None) is None and seen == ref["seen"]
     assert seen["refused"] >= G // 4, seen       # every remove-last
     assert seen["accepted_cfg"] > G and seen["rejected_cfg"] > 0, seen
-    member = np.asarray(st["j"].member)
+    member = ref["member"]
+    np.testing.assert_array_equal(st["t"].member.numpy(), member)
     # groups whose plan completed hold the planned voter sets somewhere
     assert ((member == 0b11110).any(axis=1)[0::4]).all()
     assert ((member == 0b00001).any(axis=1)[1::4]).all()
@@ -198,53 +240,57 @@ def test_flow_control_keeps_replicas_equal_under_churn():
 RG, RL = 4, 32
 
 
-def _lockstep(engines, fn):
-    out = [fn(rg) for rg in engines]
-    for o in out[1:]:
-        assert o == out[0]
-    return out[0]
-
-
-def _rounds(engines, n, deliver=None):
+def _rounds(rg, check, n, deliver=None):
     for _ in range(n):
-        for rg in engines:
-            rg.step_round(deliver=deliver)
-        assert_same_state(engines[0], engines[1], f"round {engines[0].rounds}")
+        rg.step_round(deliver=deliver)
+        check(state_leaves(rg), f"round {rg.rounds}")
 
 
-def test_raft_groups_membership_script_matches_reference():
-    ref = JaxRaftGroups(RG, P, log_slots=RL, submit_slots=S, config=JCFG,
-                        voters=VOTERS)
-    port = ReferenceDrawnGroups(RG, P, RL, S, JCFG, voters=VOTERS)
-    engines = [ref, port]
-    assert_same_state(ref, port, "init")
-    _lockstep(engines, lambda rg: rg.wait_for_leaders().tolist())
-    leaders = _lockstep(engines, lambda rg: [rg.leader(g)
-                                             for g in range(RG)])
-    adds = [_lockstep(engines, lambda rg: rg.submit(g, jap.OP_LONG_ADD,
-                                                    g + 1))
+def _membership_script(rg, check):
+    """Joins, leaves, a leader leaving, the last member's removal refused
+    and a partition, through ``add_peer``/``remove_peer``; ``check`` sees
+    every value the two engines must agree on (the state every round)."""
+    check(state_leaves(rg), "init")
+    check(rg.wait_for_leaders().tolist(), "leaders elected")
+    leaders = check([rg.leader(g) for g in range(RG)], "leaders")
+    adds = [check(rg.submit(g, jap.OP_LONG_ADD, g + 1), "add")
             for g in range(RG)]
-    cfg = _lockstep(engines, lambda rg: [
+    cfg = check([
         rg.add_peer(0, 3), rg.add_peer(0, 4),             # join, serialized
         rg.remove_peer(1, 1), rg.remove_peer(1, 2),
         rg.remove_peer(1, 0),                             # the last: FAIL
         rg.remove_peer(2, leaders[2]),                    # leader leaves
-        rg.add_peer(3, 3), rg.remove_peer(3, 0)])
-    _rounds(engines, 12)
+        rg.add_peer(3, 3), rg.remove_peer(3, 0)], "config tags")
+    _rounds(rg, check, 12)
     # lanes 1 and 2 cut off: group 0 (voters 0,1,2,3,4 by now) commits
-    more = _lockstep(engines, lambda rg: [rg.submit(g, jap.OP_LONG_ADD, 1)
-                                          for g in range(RG)])
-    _rounds(engines, 20, deliver=isolate(RG, P, [1, 2]))
-    _rounds(engines, 30)
+    more = check([rg.submit(g, jap.OP_LONG_ADD, 1) for g in range(RG)],
+                 "more")
+    _rounds(rg, check, 20, deliver=isolate(RG, P, [1, 2]))
+    _rounds(rg, check, 30)
     tags = adds + cfg + more
-    for rg in engines:
-        rg.run_until(tags, max_rounds=150)
-    _rounds(engines, 3)
-    assert port.results == ref.results
+    rg.run_until(tags, max_rounds=150)
+    _rounds(rg, check, 3)
+    check(dict(rg.results), "results")
+    voters = check([rg.voting_members(g) for g in range(RG)], "voters")
+    return leaders, cfg, voters
+
+
+def _reference_membership_script() -> list:
+    ref = JaxRaftGroups(RG, P, log_slots=RL, submit_slots=S, config=JCFG,
+                        voters=VOTERS)
+    check = Transcript()
+    _membership_script(ref, check)
+    return check.values
+
+
+def test_raft_groups_membership_script_matches_reference():
+    port = ReferenceDrawnGroups(RG, P, RL, S, JCFG, voters=VOTERS)
+    check = Transcript(SUITE_AHEAD.get("membership",
+                                       _reference_runs)["script"])
+    leaders, cfg, voters = _membership_script(port, check)
+    check.done()
     assert port.results[cfg[4]] == jap.FAIL
     assert port.metrics.counter("ops_refused").value == 1
-    voters = _lockstep(engines, lambda rg: [rg.voting_members(g)
-                                            for g in range(RG)])
     assert voters[0] == [0, 1, 2, 3, 4]
     assert voters[1] == [0]
     assert leaders[2] not in voters[2] and port.leader(2) != leaders[2]
@@ -307,22 +353,43 @@ def _lease_churn(rg, set_deliver, trace):
     trace += [sorted(island), leader, rg.voting_members(0), rg.results[q]]
 
 
+def _reference_lease_churn() -> tuple:
+    """The reference's side of the lease-under-churn scenario: its trace,
+    results, rounds and final state leaves."""
+    ref = JaxRaftGroups(2, P, log_slots=32, submit_slots=S, seed=3,
+                        config=JCFG, voters=VOTERS)
+    trace = []
+    _lease_churn(ref, lambda e, m: setattr(
+        e, "deliver", jax.numpy.asarray(np.ascontiguousarray(m))), trace)
+    return trace, ref.results, ref.rounds, state_leaves(ref)
+
+
 def test_lease_under_membership_churn_matches_reference():
-    runs = []
-    for rg, to_dev in (
-            (JaxRaftGroups(2, P, log_slots=32, submit_slots=S, seed=3,
-                           config=JCFG, voters=VOTERS), jax.numpy.asarray),
-            (ReferenceDrawnGroups(2, P, 32, S, JCFG, seed=3, voters=VOTERS),
-             torch.from_numpy)):
-        trace = []
-        _lease_churn(rg, lambda e, m, f=to_dev: setattr(
-            e, "deliver", f(np.ascontiguousarray(m))), trace)
-        runs.append((rg, trace))
-    (ref, want), (port, got) = runs
+    want, results, rounds, leaves = SUITE_AHEAD.get(
+        "membership", _reference_runs)["lease"]
+    port = ReferenceDrawnGroups(2, P, 32, S, JCFG, seed=3, voters=VOTERS)
+    got = []
+    _lease_churn(port, lambda e, m: setattr(
+        e, "deliver", torch.from_numpy(np.ascontiguousarray(m))), got)
     assert got == want
     island, leader, voters, read = got[3:]
     assert not any(lease[leader] for lease in got[:3])
     assert set(voters) == {0, 1, 2, 3, 4} - set(island)
     assert read == 222
-    assert port.results == ref.results and port.rounds == ref.rounds
-    assert_same_state(ref, port, "end")
+    assert port.results == results and port.rounds == rounds
+    assert_same_value(leaves, state_leaves(port), "end")
+
+
+def _reference_runs() -> dict:
+    """Every case's reference side, in one worker: they share the
+    reference's compiled programs."""
+    return {"step": _reference_dynamic_step(),
+            "script": _reference_membership_script(),
+            "lease": _reference_lease_churn()}
+
+
+LONG_RUNS.update({f"{os.path.basename(__file__)}::{test}": [
+    ("membership", _reference_runs, ())] for test in (
+        "test_dynamic_step_matches_reference",
+        "test_raft_groups_membership_script_matches_reference",
+        "test_lease_under_membership_churn_matches_reference")})

@@ -6,13 +6,18 @@
 - The CUDA path never falls back to the plain version; on a card the
   kernel equals the plain version (``cuda``-marked; this file imports no
   JAX, so it runs where the card is).
+- An installed package can build its kernels: every file a kernel source
+  includes is package data, and a read-only package directory sends the
+  build to the user's cache directory.
 """
 
 import ast
 import json
 import pathlib
+import re
 import subprocess
 import sys
+import tomllib
 
 import numpy as np
 import pytest
@@ -294,6 +299,46 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
             assert "ok" not in json.loads(line)
         except json.JSONDecodeError:
             pass
+
+
+def test_every_header_a_kernel_source_includes_ships():
+    """Each ``#include "..."`` of a shipped ``csrc/*.cu`` names a file that
+    a ``[tool.setuptools.package-data]`` glob of the port matches, so a
+    wheel carries what ``nvcc`` needs to build it."""
+    pyproject = tomllib.loads((ROOT / "pyproject.toml").read_text())
+    globs = pyproject["tool"]["setuptools"]["package-data"][
+        "copycat_tpu_torch"]
+    pkg = ROOT / "copycat_tpu_torch"
+    shipped = {f.resolve() for g in globs for f in pkg.glob(g)}
+    sources = sorted((pkg / "csrc").glob("*.cu"))
+    assert sources and set(sources) <= shipped
+    included = {(src.parent / name).resolve() for src in sources
+                for name in re.findall(r'^#include "([^"]+)"',
+                                       src.read_text(), re.M)}
+    assert included, "no kernel source includes a header"
+    missing = sorted(str(f.relative_to(pkg)) for f in included - shipped)
+    assert not missing, f"included but not package data: {missing}"
+
+
+def test_read_only_package_builds_into_the_user_cache(monkeypatch, tmp_path):
+    """Where the package's build directory cannot be written, the library
+    goes to ``$XDG_CACHE_HOME/copycat_tpu_torch`` (else
+    ``~/.cache/copycat_tpu_torch``) under the same keyed name."""
+    pkg_build = tmp_path / "site" / "copycat_tpu_torch" / "_build"
+    monkeypatch.setattr(kernels, "BUILD_DIR", pkg_build)
+    assert kernels._writable(pkg_build)         # made where it is missing
+    keyed = kernels.library_path(kernels.KTH_SOURCE)
+    assert keyed.parent == pkg_build
+    site = tmp_path / "site"
+    monkeypatch.setattr(kernels, "_writable",
+                        lambda path: not path.is_relative_to(site))
+    monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path / "xdg"))
+    assert kernels.library_path(kernels.KTH_SOURCE) == (
+        tmp_path / "xdg" / "copycat_tpu_torch" / keyed.name)
+    monkeypatch.delenv("XDG_CACHE_HOME")
+    monkeypatch.setenv("HOME", str(tmp_path / "home"))
+    assert kernels.library_path(kernels.KTH_SOURCE) == (
+        tmp_path / "home" / ".cache" / "copycat_tpu_torch" / keyed.name)
 
 
 @pytest.fixture

@@ -9,7 +9,11 @@ waiters and listeners inside the window, duplicate keys and pairs, and
 ``live`` false. Every state leaf, the result and the events must be
 equal, value and dtype. The ring helpers, ``push_events_window`` (more
 events than the ring holds) and ``apply_window`` (budgets ``(1,)*8``,
-mixed and ``(A,)*8``) are held the same way.
+mixed and ``(A,)*8``) are held the same way. The reference's side of the
+pool kernel chains and of the ``apply_window`` rounds depends on nothing
+of the port's: it runs once, in a worker process started with the
+session's first port file (``torch_reference.LONG_RUNS``), and comes back
+to the cases.
 """
 
 import os
@@ -22,7 +26,7 @@ jax = pytest.importorskip("jax")
 from torch_reference import (  # noqa: E402,F401
     LONG_RUNS,
     SUITE_AHEAD,
-    Ahead,
+    as_numpy,
     release_jax_programs,
 )
 import jax.numpy as jnp  # noqa: E402
@@ -182,22 +186,39 @@ def _args(rng, opcode, now):
 REF_KERNELS = {name: jax.jit(pool[4]) for name, pool in POOLS.items()}
 
 
+def _reference_chain(pool, opcode):
+    """The reference's side of one pool case: the pool state it starts
+    from, and per apply the entry's fields and the reference kernel's
+    outputs, as numpy."""
+    rng = np.random.default_rng(CASES.index((pool, opcode)))
+    now = _i(rng, 5, 15, (G, P))
+    start = want_st = POOLS[pool][3](rng, now)
+    steps = []
+    for step in range(3):
+        fields = _args(rng, opcode, now + step)
+        want = REF_KERNELS[pool](want_st, *fields)
+        steps.append((fields, jax.tree.map(np.asarray, want)))
+        want_st = want[0]
+    return tuple(np.asarray(x) for x in start), steps
+
+
+def _reference_chains() -> dict:
+    """Every pool case's reference side, in one worker."""
+    return {case: _reference_chain(*case) for case in CASES}
+
+
 @pytest.mark.parametrize("pool,opcode", CASES,
                          ids=[f"{p}-{o}" for p, o in CASES])
 def test_pool_kernel_matches_reference(pool, opcode):
-    pid, _, _, build, _ = POOLS[pool]
-    ref_kernel = REF_KERNELS[pool]
-    rng = np.random.default_rng(CASES.index((pool, opcode)))
-    now = _i(rng, 5, 15, (G, P))
-    want_st = build(rng, now)
-    got_st = tuple(torch.from_numpy(np.asarray(x)) for x in want_st)
-    for step in range(3):
-        fields = _args(rng, opcode, now + step)
-        want = ref_kernel(want_st, *fields)
+    pid = POOLS[pool][0]
+    start, steps = SUITE_AHEAD.get("pools", _reference_chains)[
+        (pool, opcode)]
+    got_st = tuple(torch.from_numpy(x) for x in start)
+    for step, (fields, want) in enumerate(steps):
         got = tap.POOL_KERNELS[pid](*got_st,
                                     *(torch.from_numpy(x) for x in fields))
         _same(want, got, f"{pool} opcode {opcode} apply {step}")
-        want_st, got_st = want[0], got[0]
+        got_st = got[0]
 
 
 @pytest.mark.parametrize("N", [1, 4, 7])
@@ -269,20 +290,9 @@ A_WIN = 8
 WINDOW_BUDGETS = [(1,) * 8, (2, 3, 1, 2, 2, 1, 2, 1), (A_WIN,) * 8]
 
 # The reference's apply_window runs: each budget tuple compiles its own
-# program. The full budgets' compiles for tens of seconds, so a session
-# that holds the case starts it with its first port file that runs the
-# reference (``torch_reference.LONG_RUNS``); the other two start ahead,
-# beside the rest of this file, when its first test runs.
-AHEAD = Ahead()
-FULL = WINDOW_BUDGETS[-1]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def reference_windows_ahead(release_jax_programs):
-    for budgets in WINDOW_BUDGETS[:-1]:
-        AHEAD.start(budgets, _reference_windows, budgets)
-    yield
-    AHEAD.close()
+# program, the full budgets' for tens of seconds, so a session that holds
+# the case starts them with its first port file that runs the reference
+# (``torch_reference.LONG_RUNS``).
 
 
 def _reference_windows(budgets):
@@ -308,12 +318,16 @@ def _reference_windows(budgets):
         jres, jresult, jadm = ref(jres, *fields, budgets)
         rounds.append((fields, jres, jresult, jadm))
         base = base + np.asarray(jadm).sum(-1, dtype=np.int32)
-    return rounds
+    return as_numpy(rounds)
 
 
 LONG_RUNS[f"{os.path.basename(__file__)}::"
           "test_apply_window_matches_reference"] = [
-    (("apply_window", FULL), _reference_windows, (FULL,))]
+    (("apply_window", budgets), _reference_windows, (budgets,))
+    for budgets in WINDOW_BUDGETS]
+LONG_RUNS[f"{os.path.basename(__file__)}::"
+          "test_pool_kernel_matches_reference"] = [
+    ("pools", _reference_chains, ())]
 
 
 @pytest.mark.parametrize("budgets", WINDOW_BUDGETS,
@@ -322,9 +336,8 @@ def test_apply_window_matches_reference(budgets):
     """Eight rounds of windows drawn from the whole catalog, each a
     committed prefix of random length: state, results and the admitted
     mask equal the reference's every round."""
-    rounds = (SUITE_AHEAD.get(("apply_window", FULL), _reference_windows,
-                              FULL) if budgets == FULL
-              else AHEAD.get(budgets, _reference_windows, budgets))
+    rounds = SUITE_AHEAD.get(("apply_window", budgets), _reference_windows,
+                             budgets)
     tres = convert.resources_to_torch(jap.init_resources(G, P, RC_SMALL),
                                       "cpu")
     deferred = 0

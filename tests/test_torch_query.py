@@ -8,8 +8,14 @@ reference run reaches under partitions (every pool, random read opcodes,
 with and without ``atomic``). ``submit_query`` (with its escalation to the
 command path), ``serve_query`` and ``drive_query_vector`` give the
 reference's results through ``RaftGroups`` in lockstep.
+
+Each reference side depends on nothing of the port's: it runs once, in a
+worker process started with the session's first port file
+(``torch_reference.LONG_RUNS``), and records what the port's run is then
+held against (``torch_reference.Transcript``).
 """
 
+import os
 from functools import partial
 
 import numpy as np
@@ -26,9 +32,12 @@ from copycat_tpu.ops import consensus as jcons  # noqa: E402
 from copycat_tpu_torch import convert  # noqa: E402
 from copycat_tpu_torch.ops import consensus as tcons  # noqa: E402
 from torch_reference import (  # noqa: E402
+    LONG_RUNS,
+    SUITE_AHEAD,
     ReferenceDrawnGroups,
-    assert_same_state,
+    Transcript,
     isolate,
+    state_leaves,
 )
 
 G, P, L, S = 16, 3, 16, 8
@@ -51,16 +60,18 @@ def _ops(rng, opcodes, width):
                 valid=rng.random((G, width)) < 0.8)
 
 
-@pytest.mark.parametrize("atomic", [False, True])
-def test_query_step_matches_reference(atomic):
-    tcfg = convert.config_to_torch(JCFG)
+def _reference_query_rounds(atomic: bool) -> list:
+    """The reference's side of ``test_query_step_matches_reference``: 24
+    rounds of its step under partitions, and per round its state (numpy
+    leaves), the read slots and atomic mask, and its ``query_step``
+    answer."""
     key = jax.random.PRNGKey(11)
     key, init_key = jax.random.split(key)
     jstate = jcons.init_state(G, P, L, init_key, JCFG)
     jstep = jax.jit(partial(jcons.step, config=JCFG))
     jquery = jax.jit(partial(jcons.query_step, config=JCFG))
     rng = np.random.default_rng(5)
-    served_total = unserved = 0
+    rounds = []
     for r in range(24):
         key, k = jax.random.split(key)
         deliver = (isolate(G, P, [r % P]) if 8 <= r < 14
@@ -70,16 +81,27 @@ def test_query_step_matches_reference(atomic):
         q = _ops(rng, _READS, 5)
         at = rng.random((G, 5)) < 0.5 if atomic else None
         want = jquery(jstate, jcons.Submits(**q), at)
+        rounds.append((jax.tree.map(np.asarray, jstate), q, at,
+                       tuple(np.asarray(w) for w in want)))
+    return rounds
+
+
+@pytest.mark.parametrize("atomic", [False, True])
+def test_query_step_matches_reference(atomic):
+    tcfg = convert.config_to_torch(JCFG)
+    served_total = unserved = 0
+    rounds = SUITE_AHEAD.get("query", _reference_runs)[atomic]
+    assert len(rounds) == 24
+    for r, (jstate, q, at, want) in enumerate(rounds):
         got = tcons.query_step(
             convert.state_to_torch(jstate, "cpu"),
             tcons.Submits(**{n: torch.from_numpy(v) for n, v in q.items()}),
             None if at is None else torch.from_numpy(at), tcfg)
         for w, g, name in zip(want, got, ("results", "served")):
-            w = np.asarray(w)
             assert g.numpy().dtype == w.dtype, name
             np.testing.assert_array_equal(g.numpy(), w,
                                           err_msg=f"{name} round {r}")
-        served = np.asarray(want[1])
+        served = want[1]
         served_total += int(served.sum())
         unserved += int((q["valid"] & ~served).sum())
     assert served_total > 0 and unserved > 0
@@ -92,59 +114,60 @@ MAP_CFG = JCFG._replace(resource=jap.ResourceConfig(
     event_slots=0, multimap_slots=0, topic_slots=0))
 
 
-def _engines(seed=0):
-    ref = JaxRaftGroups(G, P, log_slots=L, submit_slots=4, config=MAP_CFG,
-                        seed=seed)
-    port = ReferenceDrawnGroups(G, P, L, 4, MAP_CFG, seed=seed)
-    for rg in (ref, port):
-        rg.wait_for_leaders()
-    return ref, port
-
-
-def test_query_lane_gives_the_reference_results():
+def _lane_script(rg, check):
     """Puts through the log, then reads on every query entry point, with
-    a partition that makes some reads escalate to the command path."""
-    ref, port = _engines()
-    engines = (ref, port)
+    a partition that makes some reads escalate to the command path;
+    ``check`` sees every value the two engines must agree on (the state
+    every round)."""
     rng = np.random.default_rng(9)
+    rg.wait_for_leaders()
     tags = []
     for r in range(16):
         g = rng.integers(0, G, 6)
         k = rng.integers(0, 4, 6)
         v = rng.integers(1, 100, 6)
-        put = [list(rg.submit_batch(g, jap.OP_MAP_PUT, k, v))
-               for rg in engines]
-        assert put[0] == put[1]
+        tags += check(list(rg.submit_batch(g, jap.OP_MAP_PUT, k, v)), "put")
         gq = rng.integers(0, G, 4)
         kq = rng.integers(0, 4, 4)
-        got = [[rg.submit_query(int(a), jap.OP_MAP_GET, int(b),
-                                consistency="atomic" if r % 2 else
-                                "sequential") for a, b in zip(gq, kq)]
-               for rg in engines]
-        assert got[0] == got[1]
-        tags += put[0] + got[0]
-        deliver = isolate(G, P, [1]) if 6 <= r < 10 else None
-        for rg in engines:
-            rg.step_round(deliver=deliver)
-        assert_same_state(ref, port, f"round {r}")
-    for rg in engines:
-        rg.run_until(tags, max_rounds=100)
-    assert port.results == ref.results
-    assert port.metrics.counter("queries_escalated").value > 0
-    assert port.metrics.counter("queries_served").value > 0
+        tags += check([rg.submit_query(int(a), jap.OP_MAP_GET, int(b),
+                                       consistency="atomic" if r % 2 else
+                                       "sequential")
+                       for a, b in zip(gq, kq)], "query tags")
+        rg.step_round(deliver=isolate(G, P, [1]) if 6 <= r < 10 else None)
+        check(state_leaves(rg), f"round {r}")
+    rg.run_until(tags, max_rounds=100)
+    check(dict(rg.results), "results")
     rows = np.arange(G).repeat(3)
     keys = np.tile([0, 1, 3], G)
-    vec = [rg.drive_query_vector(rows, jap.OP_MAP_GET, keys,
-                                 atomic=rows % 2 == 0) for rg in engines]
-    np.testing.assert_array_equal(vec[1], vec[0])
-    one = [rg.serve_query(5, jap.OP_MAP_SIZE, consistency="atomic")
-           for rg in engines]
-    assert one[1] == one[0]
-    assert_same_state(ref, port, "end")
+    check(np.asarray(rg.drive_query_vector(rows, jap.OP_MAP_GET, keys,
+                                           atomic=rows % 2 == 0)).tolist(),
+          "vector")
+    check(rg.serve_query(5, jap.OP_MAP_SIZE, consistency="atomic"), "one")
+    check(state_leaves(rg), "end")
+
+
+def _reference_lane() -> list:
+    ref = JaxRaftGroups(G, P, log_slots=L, submit_slots=4, config=MAP_CFG,
+                        seed=0)
+    check = Transcript()
+    _lane_script(ref, check)
+    return check.values
+
+
+def test_query_lane_gives_the_reference_results():
+    """Puts through the log, then reads on every query entry point, with
+    a partition that makes some reads escalate to the command path."""
+    port = ReferenceDrawnGroups(G, P, L, 4, MAP_CFG, seed=0)
+    check = Transcript(SUITE_AHEAD.get("query", _reference_runs)["lane"])
+    _lane_script(port, check)
+    check.done()
+    assert port.metrics.counter("queries_escalated").value > 0
+    assert port.metrics.counter("queries_served").value > 0
 
 
 def test_query_lane_refuses_writes():
-    _, port = _engines()
+    port = ReferenceDrawnGroups(G, P, L, 4, MAP_CFG, seed=0)
+    port.wait_for_leaders()
     with pytest.raises(ValueError, match="read-only"):
         port.submit_query(0, jap.OP_MAP_PUT, 1, 2)
     with pytest.raises(ValueError, match="read-only"):
@@ -153,3 +176,15 @@ def test_query_lane_refuses_writes():
         port.drive_query_vector([0, 1], [jap.OP_MAP_GET, jap.OP_Q_POLL])
     with pytest.raises(ValueError, match="consistency"):
         port.submit_query(0, jap.OP_MAP_GET, consistency="linearizable")
+
+
+def _reference_runs() -> dict:
+    """Every case's reference side, in one worker."""
+    return {False: _reference_query_rounds(False),
+            True: _reference_query_rounds(True), "lane": _reference_lane()}
+
+
+LONG_RUNS.update({f"{os.path.basename(__file__)}::{test}": [
+    ("query", _reference_runs, ())] for test in (
+        "test_query_step_matches_reference",
+        "test_query_lane_gives_the_reference_results")})

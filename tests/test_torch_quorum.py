@@ -21,11 +21,16 @@ and the edge cases the inputs carry:
   lane's members with the per-group quorum ``l_quorum`` (lines 605-611,
   643-644 and 826-829).
 
+The reference's expressions run once, in a worker process started with
+the session's first port file (``torch_reference.LONG_RUNS``), and their
+answers come back to the cases.
+
 The CUDA kernels are held against the plain versions by the ``cuda``-marked
 tests at the end, which need no JAX (the reference is imported only where
 it is used), so they run where the card is.
 """
 
+import os
 from functools import lru_cache
 
 import numpy as np
@@ -35,6 +40,11 @@ torch = pytest.importorskip("torch")
 
 from copycat_tpu_torch import cases  # noqa: E402
 from copycat_tpu_torch.ops import kernels  # noqa: E402
+
+try:
+    from torch_reference import LONG_RUNS
+except ImportError:     # no JAX where the card is: its cases need none
+    LONG_RUNS = {}
 
 G, S, L = 300, 16, 16
 
@@ -155,11 +165,48 @@ def _assert_equal(got, want: dict, int64=()):
         np.testing.assert_array_equal(g, w, err_msg=name)
 
 
-@pytest.mark.parametrize("P", [3, 5, 7, 9, 16, 32, 33])
+PHASE_PEERS = [3, 5, 7, 9, 16, 32, 33]
+MASKED_PEERS = [3, 5, 7, 9, 16, 32]
+
+
+def _masked_cases(P):
+    rng = np.random.default_rng(20 + P)
+    a = cases.admit_case(rng, G, P, S, L)
+    a_view = cases.member_views(rng, a["lead"], P)
+    k = cases.ack_case(rng, G, P, L)
+    k_view = cases.member_views(rng, k["lead"], P)
+    return a, a_view, k, k_view
+
+
+def _reference_answers() -> dict:
+    """Every case's reference answer, as numpy."""
+    import jax
+    from copycat_tpu.ops import consensus, pallas_kernels
+    ref = consensus, pallas_kernels
+    out = {}
+    for P in PHASE_PEERS:
+        quorum = P // 2 + 1
+        out["admit", P] = _compiled(_ref_admit)(ref, cases.admit_case(
+            np.random.default_rng(P), G, P, S, L), quorum)
+        out["ack", P] = _compiled(_ref_ack)(ref, cases.ack_case(
+            np.random.default_rng(10 + P), G, P, L), quorum)
+    for P in MASKED_PEERS:
+        a, a_view, k, k_view = _masked_cases(P)
+        out["masked", P] = (_compiled(_ref_admit)(ref, a, 0, a_view),
+                            _compiled(_ref_ack)(ref, k, 0, k_view)[0])
+    return jax.tree.map(np.asarray, out)
+
+
+def _answers(ref):
+    from torch_reference import SUITE_AHEAD
+    return SUITE_AHEAD.get("quorum", _reference_answers)
+
+
+@pytest.mark.parametrize("P", PHASE_PEERS)
 def test_admit_submits_matches_reference(ref, P):
     quorum = P // 2 + 1
     c = cases.admit_case(np.random.default_rng(P), G, P, S, L)
-    want = _compiled(_ref_admit)(ref, c, quorum)
+    want = _answers(ref)["admit", P]
     got = kernels.admit_submits(**_torch(c), quorum=quorum, L=L)
     # the slot is int64 in the port: scatter takes int64 indices
     _assert_equal(got, want, int64=("slot",))
@@ -171,11 +218,11 @@ def test_admit_submits_matches_reference(ref, P):
     assert (accepted.sum(1) < offered.sum(1)).any()    # cut mid-window
 
 
-@pytest.mark.parametrize("P", [3, 5, 7, 9, 16, 32, 33])
+@pytest.mark.parametrize("P", PHASE_PEERS)
 def test_ack_commit_matches_reference(ref, P):
     quorum = P // 2 + 1
     c = cases.ack_case(np.random.default_rng(10 + P), G, P, L)
-    want, cand = _compiled(_ref_ack)(ref, c, quorum)
+    want, cand = _answers(ref)["ack", P]
     cand = np.asarray(cand)
     got = kernels.ack_commit(**_torch(c), quorum=quorum)
     _assert_equal(got, want)
@@ -194,20 +241,15 @@ def test_ack_commit_matches_reference(ref, P):
     assert (srt[:, 1:] == srt[:, :-1]).any(axis=1).mean() > 0.3
 
 
-@pytest.mark.parametrize("P", [3, 5, 7, 9, 16, 32])
+@pytest.mark.parametrize("P", MASKED_PEERS)
 def test_masked_phases_match_reference(ref, P):
     """Both phases with a member view: the masked tally with a per-group
     quorum, the lease over member acks."""
-    rng = np.random.default_rng(20 + P)
-    a = cases.admit_case(rng, G, P, S, L)
-    a_view = cases.member_views(rng, a["lead"], P)
-    want = _compiled(_ref_admit)(ref, a, 0, a_view)
+    a, a_view, k, k_view = _masked_cases(P)
+    want_admit, want = _answers(ref)["masked", P]
     got = kernels.admit_submits(**_torch(a), quorum=P // 2 + 1, L=L,
                                 view=torch.from_numpy(a_view))
-    _assert_equal(got, want, int64=("slot",))
-    k = cases.ack_case(rng, G, P, L)
-    k_view = cases.member_views(rng, k["lead"], P)
-    want, _ = _compiled(_ref_ack)(ref, k, 0, k_view)
+    _assert_equal(got, want_admit, int64=("slot",))
     got = kernels.ack_commit(**_torch(k), quorum=P // 2 + 1,
                              view=torch.from_numpy(k_view))
     _assert_equal(got, want)
@@ -294,6 +336,13 @@ def test_library_key_covers_the_shared_header(tmp_path):
     assert kernels.library_path(src) != first
 
 
+LONG_RUNS.update({f"{os.path.basename(__file__)}::{test}": [
+    ("quorum", _reference_answers, ())] for test in (
+        "test_admit_submits_matches_reference",
+        "test_ack_commit_matches_reference",
+        "test_masked_phases_match_reference")})
+
+
 # ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
@@ -344,6 +393,29 @@ def test_ack_commit_cuda_matches_plain(cuda_device, P, groups):
         g = getattr(got, name).cpu()
         assert g.dtype == w.dtype, name
         assert torch.equal(g, w), name
+
+
+# the tally alone past 8 peers: CUDA_SHAPES' wide shapes, two lanes a
+# thread (64), and more lanes a thread than it keeps in registers (130)
+WIDE_TALLY_SHAPES = ([(P, G_) for P, G_ in CUDA_SHAPES if P > 8]
+                     + [(64, 1_001), (130, 1_001)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,groups", WIDE_TALLY_SHAPES)
+def test_wide_kth_largest_cuda_matches_plain(cuda_device, P, groups):
+    """The warp-tile tally equals the plain version bit for bit at k = 1,
+    the quorum and P, on rows with duplicates and INT32_MIN lanes."""
+    rng = np.random.default_rng(50 + P)
+    x = rng.integers(-1000, 1000, (groups, P)).astype(np.int32)
+    dup = rng.random(groups) < 0.2
+    x[dup] = x[dup, :1]
+    x[rng.random((groups, P)) < 0.1] = kernels.INT_MIN
+    xc = torch.from_numpy(x).to(cuda_device)
+    for k in sorted({1, P // 2 + 1, P}):
+        got = kernels.kth_largest_cuda(xc, k).cpu()
+        want = kernels.kth_largest_plain(torch.from_numpy(x), k)
+        assert got.dtype == want.dtype and torch.equal(got, want), k
 
 
 def _held_to_plain(cuda_device, a: dict, k: dict, P: int) -> None:

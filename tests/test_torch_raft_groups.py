@@ -14,7 +14,15 @@ A second stream drives every pool under the reference's default
 events), map, queue, set and topic ops. Both engines must give equal
 state every round, equal results and equal ``events``; the port's
 ``RaftGroups()`` defaults to that config.
+
+Each reference side depends on nothing of the port's: it runs once, in a
+worker process started with the session's first port file
+(``torch_reference.LONG_RUNS``), and records its partition masks and
+everything the port's run is then held against, round by round
+(``torch_reference.Transcript``).
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -22,9 +30,11 @@ import pytest
 torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 from torch_reference import (  # noqa: E402,F401
-    Ahead,
+    LONG_RUNS,
+    SUITE_AHEAD,
+    Transcript,
     release_jax_programs,
-    warm_reference,
+    state_leaves,
 )
 
 from copycat_tpu.models import RaftGroups as JaxRaftGroups  # noqa: E402
@@ -32,7 +42,6 @@ from copycat_tpu.ops import apply as jap  # noqa: E402
 from copycat_tpu.ops.consensus import Config as JaxConfig  # noqa: E402
 
 import torch_reference  # noqa: E402
-from copycat_tpu_torch import convert  # noqa: E402
 from copycat_tpu_torch.models import RaftGroups  # noqa: E402
 
 G, P, L, S = 16, 3, 16, 4
@@ -47,78 +56,52 @@ class ReferenceDrawnGroups(torch_reference.ReferenceDrawnGroups):
         super().__init__(G, P, L, S, jcfg, seed=seed)
 
 
-# The reference's programs for the file's two configs (and the fused
-# rounds its step_rounds case runs) compile ahead, beside the first tests.
-AHEAD = Ahead()
-
-
-@pytest.fixture(scope="module", autouse=True)
-def programs_ahead(release_jax_programs):
-    AHEAD.start("counters", warm_reference, G, P, L, S, JCFG, 0, (8,))
-    AHEAD.start("all pools", warm_reference, G, P, L, S, JaxConfig())
-    yield
-    AHEAD.close()
-
-
 def _isolate(victims):
     hit = np.arange(P)[None, :] == victims[:, None]
     return ~(hit[:, :, None] | hit[:, None, :]) | (victims < 0)[:, None, None]
 
 
-def _partition(engines, r):
+def _partition(rg, r, check):
     """The partition schedule: every group's leader isolated in rounds
-    5-12 and 20-27."""
+    5-12 and 20-27, the leaders as the reference's run found them."""
     if r in (5, 20):
-        mask = _isolate(np.asarray([engines[0].leader(g) for g in range(G)]))
+        mask = check.given(_isolate(np.asarray(
+            [rg.leader(g) for g in range(G)])))
     elif r in (13, 28):
         mask = np.ones((G, P, P), bool)
     else:
         return
-    engines[0].deliver = jax.numpy.asarray(mask)
-    for rg in engines[1:]:
-        rg.deliver = torch.from_numpy(mask)
+    rg.deliver = (jax.numpy.asarray(mask) if isinstance(rg, JaxRaftGroups)
+                  else torch.from_numpy(mask))
 
 
-def _same_state(engines, r):
-    want = convert.flat_leaves(engines[0].state)
-    for rg in engines[1:]:
-        got = convert.flat_leaves(rg.state)
-        for name, w in want.items():
-            np.testing.assert_array_equal(got[name], w,
-                                          err_msg=f"{name} round {r}")
-
-
-def _drive(engines, compare_state):
-    """Submit the same sequence to every engine, step them in lockstep
-    under the partition schedule, and return each engine's results plus
-    the (group, delta, tag) log of what was submitted."""
+def _drive(rg, check, compare_state):
+    """Submit the request sequence to ``rg`` and step it under the
+    partition schedule; ``check`` sees the tags, the state every round
+    (with ``compare_state``) and the results. Returns the (group, delta,
+    tag) log of what was submitted."""
     rng = np.random.default_rng(3)
-    for rg in engines:
-        rg.wait_for_leaders()
+    rg.wait_for_leaders()
     submitted = []
     for r in range(60):
         if r < 30:
             if r % 2:
                 g = rng.integers(0, G, 6)
                 d = rng.integers(1, 9, 6)
-                tags = [rg.submit_batch(g, jap.OP_LONG_ADD, d)
-                        for rg in engines]
+                tags = list(rg.submit_batch(g, jap.OP_LONG_ADD, d))
             else:
                 g = rng.integers(0, G, 3)
                 d = rng.integers(1, 9, 3)
-                tags = [[rg.submit(int(gi), jap.OP_LONG_ADD, int(di))
-                         for gi, di in zip(g, d)] for rg in engines]
-            for t in tags[1:]:
-                assert list(t) == list(tags[0])
-            submitted += list(zip(g.tolist(), d.tolist(), list(tags[0])))
-        _partition(engines, r)
-        for rg in engines:
-            rg.step_round()
+                tags = [rg.submit(int(gi), jap.OP_LONG_ADD, int(di))
+                        for gi, di in zip(g, d)]
+            check(tags, f"tags round {r}")
+            submitted += list(zip(g.tolist(), d.tolist(), tags))
+        _partition(rg, r, check)
+        rg.step_round()
         if compare_state:
-            _same_state(engines, r)
-    tags = [t for _, _, t in submitted]
-    for rg in engines:
-        rg.run_until(tags, max_rounds=300)
+            check(state_leaves(rg), f"round {r}")
+    rg.run_until([t for _, _, t in submitted], max_rounds=300)
+    check(dict(rg.results), "results")
     return submitted
 
 
@@ -131,23 +114,31 @@ def _check_exactly_once(rg, submitted):
         assert (rg.state.resources.value[g] == totals.get(g, 0)).all()
 
 
-def test_same_draws_give_the_same_state_every_round():
+def _reference_drive(compare_state: bool) -> list:
     ref = JaxRaftGroups(G, P, log_slots=L, submit_slots=S, config=JCFG)
+    check = Transcript()
+    _check_exactly_once(ref, _drive(ref, check, compare_state))
+    return check.values
+
+
+def test_same_draws_give_the_same_state_every_round():
     port = ReferenceDrawnGroups()
-    submitted = _drive([ref, port], compare_state=True)
-    assert port.results == ref.results
+    check = Transcript(SUITE_AHEAD.get("raft_groups", _reference_runs)[
+        "same draws"])
+    submitted = _drive(port, check, compare_state=True)
+    check.done()
     assert port.metrics.counter("ops_resubmitted").value > 0, \
         "no op was lost and retried"
     _check_exactly_once(port, submitted)
-    _check_exactly_once(ref, submitted)
 
 
 def test_own_generator_gives_the_same_results():
-    ref = JaxRaftGroups(G, P, log_slots=L, submit_slots=S, config=JCFG)
     port = RaftGroups(G, P, log_slots=L, submit_slots=S, seed=5,
                       device="cpu")
-    submitted = _drive([ref, port], compare_state=False)
-    assert port.results == ref.results
+    check = Transcript(SUITE_AHEAD.get("raft_groups", _reference_runs)[
+        "own generator"])
+    submitted = _drive(port, check, compare_state=False)
+    check.done()
     _check_exactly_once(port, submitted)
 
 
@@ -182,15 +173,11 @@ _CHAINS = (
 )
 
 
-def test_all_pool_stream_gives_the_same_results_and_events():
-    jcfg = JaxConfig()
-    ref = JaxRaftGroups(G, P, log_slots=L, submit_slots=S, config=jcfg)
-    port = ReferenceDrawnGroups(jcfg=jcfg)
-    assert RaftGroups(G, P, device="cpu").config == port.config._replace(
-        ring_flow_control=True)
-    engines = [ref, port]
-    for rg in engines:
-        rg.wait_for_leaders()
+def _all_pool_stream(rg, check):
+    """Chains over every pool, three groups a round for 30 rounds under
+    the partition schedule; ``check`` sees the tags, the state every
+    round and at the end, the results and the events."""
+    rg.wait_for_leaders()
     rng = np.random.default_rng(4)
     tags = []
     for r in range(40):
@@ -198,27 +185,72 @@ def test_all_pool_stream_gives_the_same_results_and_events():
             for g in rng.choice(G, 3, replace=False).tolist():
                 chain = np.asarray(_CHAINS[rng.integers(len(_CHAINS))])
                 if r % 2:
-                    got = [list(rg.submit_batch(np.full(len(chain), g),
-                                                chain[:, 0], chain[:, 1],
-                                                chain[:, 2]))
-                           for rg in engines]
+                    got = list(rg.submit_batch(np.full(len(chain), g),
+                                               chain[:, 0], chain[:, 1],
+                                               chain[:, 2]))
                 else:
-                    got = [[rg.submit(g, *map(int, op)) for op in chain]
-                           for rg in engines]
-                assert got[1] == got[0]
-                tags += got[0]
-        _partition(engines, r)
-        for rg in engines:
-            rg.step_round()
-        _same_state(engines, r)
-    for rg in engines:
-        rg.run_until(tags, max_rounds=300)
-        rg.run(4)      # followers apply the last commit; events drain
-    _same_state(engines, "end")
-    assert port.results == ref.results
-    assert port.events == ref.events
+                    got = [rg.submit(g, *map(int, op)) for op in chain]
+                tags += check(got, f"tags round {r}")
+        _partition(rg, r, check)
+        rg.step_round()
+        check(state_leaves(rg), f"round {r}")
+    rg.run_until(tags, max_rounds=300)
+    rg.run(4)      # followers apply the last commit; events drain
+    check(state_leaves(rg), "end")
+    check(dict(rg.results), "results")
+    check(dict(rg.events), "events")
+
+
+def _reference_all_pools() -> list:
+    ref = JaxRaftGroups(G, P, log_slots=L, submit_slots=S,
+                        config=JaxConfig())
+    check = Transcript()
+    _all_pool_stream(ref, check)
+    return check.values
+
+
+def test_all_pool_stream_gives_the_same_results_and_events():
+    jcfg = JaxConfig()
+    port = ReferenceDrawnGroups(jcfg=jcfg)
+    assert RaftGroups(G, P, device="cpu").config == port.config._replace(
+        ring_flow_control=True)
+    check = Transcript(SUITE_AHEAD.get("raft_groups", _reference_runs)[
+        "all pools"])
+    _all_pool_stream(port, check)
+    check.done()
     codes = {e[1] for evs in port.events.values() for e in evs}
     assert codes == {jap.EV_LOCK_GRANT, jap.EV_ELECT, jap.EV_TOPIC_MSG}
+
+
+def _vector_and_rounds(rg, check):
+    """``drive_vector`` on every group, then ``step_rounds(8)`` and
+    ``step_rounds(1)`` after batches; ``check`` sees the answers, the
+    state after each, the rounds and the results."""
+    rg.wait_for_leaders()
+    rng = np.random.default_rng(8)
+    g = np.repeat(np.arange(G), rng.integers(0, S + 1, G))
+    d = rng.integers(1, 50, g.size)
+    z = np.zeros_like(g)
+    got = check(np.asarray(rg.drive_vector(g, z + jap.OP_LONG_ADD, d, z,
+                                           z)).tolist(), "drive_vector")
+    check(state_leaves(rg), "after drive_vector")
+    for n in (8, 1):
+        rows = rng.integers(0, G, 10)
+        tags = check(list(rg.submit_batch(rows, jap.OP_LONG_ADD, 1)),
+                     "tags")
+        rg.step_rounds(n)
+        check(rg.rounds, f"rounds after step_rounds({n})")
+        check(state_leaves(rg), f"after step_rounds({n})")
+    rg.run(2)
+    check(dict(rg.results), "results")
+    return g, d, got, tags
+
+
+def _reference_vector_and_rounds() -> list:
+    ref = JaxRaftGroups(G, P, log_slots=L, submit_slots=S, config=JCFG)
+    check = Transcript()
+    _vector_and_rounds(ref, check)
+    return check.values
 
 
 def test_drive_vector_and_step_rounds_match_reference():
@@ -227,34 +259,30 @@ def test_drive_vector_and_step_rounds_match_reference():
     — n rounds, one fetch, the draws taken as the reference's fused
     program takes them — leaves the reference's state, results and round
     count."""
-    assert_same_state = torch_reference.assert_same_state
-    ref = JaxRaftGroups(G, P, log_slots=L, submit_slots=S, config=JCFG)
     port = ReferenceDrawnGroups()
-    engines = [ref, port]
-    for rg in engines:
-        rg.wait_for_leaders()
-    rng = np.random.default_rng(8)
-    g = np.repeat(np.arange(G), rng.integers(0, S + 1, G))
-    d = rng.integers(1, 50, g.size)
-    z = np.zeros_like(g)
-    got = [rg.drive_vector(g, z + jap.OP_LONG_ADD, d, z, z)
-           for rg in engines]
-    np.testing.assert_array_equal(got[1], got[0])
+    check = Transcript(SUITE_AHEAD.get("raft_groups", _reference_runs)[
+        "vector"])
+    g, d, got, tags = _vector_and_rounds(port, check)
+    check.done()
     totals = np.zeros(G, np.int64)
     for i, (gi, di) in enumerate(zip(g, d)):
         totals[gi] += di
-        assert got[1][i] == totals[gi]
-    assert_same_state(ref, port, "after drive_vector")
-    for n in (8, 1):
-        rows = rng.integers(0, G, 10)
-        tags = [list(rg.submit_batch(rows, jap.OP_LONG_ADD, 1))
-                for rg in engines]
-        assert tags[0] == tags[1]
-        for rg in engines:
-            rg.step_rounds(n)
-        assert port.rounds == ref.rounds
-        assert_same_state(ref, port, f"after step_rounds({n})")
-    for rg in engines:
-        rg.run(2)
-    assert port.results == ref.results
-    assert all(t in port.results for t in tags[0])
+        assert got[i] == totals[gi]
+    assert all(t in port.results for t in tags)
+
+
+def _reference_runs() -> dict:
+    """Every case's reference side, in one worker: they share the
+    reference's compiled programs."""
+    return {"same draws": _reference_drive(True),
+            "own generator": _reference_drive(False),
+            "all pools": _reference_all_pools(),
+            "vector": _reference_vector_and_rounds()}
+
+
+LONG_RUNS.update({f"{os.path.basename(__file__)}::{test}": [
+    ("raft_groups", _reference_runs, ())] for test in (
+        "test_same_draws_give_the_same_state_every_round",
+        "test_own_generator_gives_the_same_results",
+        "test_all_pool_stream_gives_the_same_results_and_events",
+        "test_drive_vector_and_step_rounds_match_reference")})

@@ -23,6 +23,7 @@ every event must be equal.
 
 import asyncio
 import itertools
+import os
 import random
 from types import SimpleNamespace
 
@@ -67,32 +68,17 @@ from copycat_tpu_torch.ops.consensus import Config  # noqa: E402
 from copycat_tpu_torch.resource.consistency import Consistency  # noqa: E402
 from copycat_tpu_torch.server.log import Storage, StorageLevel  # noqa: E402
 
-from helpers import async_test  # noqa: E402
+from helpers import arun, async_test  # noqa: E402
 from torch_reference import (  # noqa: E402,F401
-    Ahead,
+    LONG_RUNS,
+    SUITE_AHEAD,
     release_jax_programs,
-    warm_reference_engine,
 )
 
 EXECUTORS = ("cpu", "tpu")
 _PORTS = itertools.count(52_000)
 _POOLS = ("map_slots", "set_slots", "queue_slots", "wait_slots",
           "listener_slots", "event_slots", "multimap_slots", "topic_slots")
-
-# the reference server's device-engine programs (its differential case
-# runs three reference servers) compile ahead, beside the first tests
-AHEAD = Ahead()
-
-
-@pytest.fixture(scope="module", autouse=True)
-def programs_ahead(release_jax_programs):
-    from copycat_tpu.manager.device_executor import (
-        DeviceEngineConfig as RDeviceEngineConfig)
-    AHEAD.start("engine", warm_reference_engine,
-                RDeviceEngineConfig(capacity=8, num_peers=3, log_slots=32))
-    yield
-    AHEAD.close()
-
 
 def next_ports(n):
     return [Address("local", next(_PORTS)) for _ in range(n)]
@@ -1195,14 +1181,7 @@ async def _run_differential(pkg, script):
         await _teardown([client, server])
 
 
-@async_test(timeout=300)
-async def test_differential_against_the_reference_server():
-    """One seeded script, one client, one op in flight, through the
-    reference's ``AtomixServer(executor="tpu")`` and the port's: equal
-    answers, equal events, equal placement (every resource a device
-    machine). Both engines at the shape of the reference's
-    ``test_executor_parity.py`` (every pool), whose programs the
-    reference has compiled before this file runs."""
+def _reference_namespace() -> SimpleNamespace:
     from copycat_tpu import atomic as r_atomic
     from copycat_tpu import collections as r_coll
     from copycat_tpu import coordination as r_coord
@@ -1212,7 +1191,7 @@ async def test_differential_against_the_reference_server():
     from copycat_tpu.manager.device_executor import (
         DeviceEngineConfig as RDeviceEngineConfig)
 
-    ref = SimpleNamespace(
+    return SimpleNamespace(
         LocalServerRegistry=r_local.LocalServerRegistry,
         LocalTransport=r_local.LocalTransport, Address=RAddress,
         AtomixServer=r_atomix.AtomixServer,
@@ -1225,6 +1204,42 @@ async def test_differential_against_the_reference_server():
         DistributedLock=r_coord.DistributedLock,
         DistributedLeaderElection=r_coord.DistributedLeaderElection,
         engine=RDeviceEngineConfig(capacity=8, num_peers=3, log_slots=32))
+
+
+DIFFERENTIAL_SEED = 2024
+
+
+def _reference_differential() -> tuple:
+    """The reference's side of the differential, run twice in one process
+    and the second run returned. The reference's engine compiles each of
+    its programs at first use, on the server's event loop: the step, the
+    query lane, and the fused ``step_rounds`` program of an event
+    consumer's settle window, the last at the first lock hand-off. On a
+    loaded host that compile has held the loop past the clients' 10 s
+    session timeout, and the server then expired the session
+    (``UNKNOWN_SESSION`` at the script's first ``lock()``). The first run
+    compiles every program the script takes, so the second runs none."""
+    ref = _reference_namespace()
+    script = _differential_script(seed=DIFFERENTIAL_SEED)
+    try:
+        arun(_run_differential(ref, script), timeout=300)
+    except Exception:   # noqa: BLE001 — a warm-up: only the next run counts
+        pass
+    return arun(_run_differential(ref, script), timeout=300)
+
+
+def test_differential_against_the_reference_server():
+    """One seeded script, one client, one op in flight, through the
+    reference's ``AtomixServer(executor="tpu")`` and the port's: equal
+    answers, equal events, equal placement (every resource a device
+    machine). Both engines at the shape of the reference's
+    ``test_executor_parity.py`` (every pool). The reference's side runs
+    in a worker process started with the session's first port file
+    (``torch_reference.LONG_RUNS``), with its programs compiled before
+    the run that counts; the script has one server, so no leader change
+    (ROADMAP Queue 3: a fresh leader's ``UNKNOWN_SESSION``, a fault the
+    reference keeps)."""
+    want = SUITE_AHEAD.get("server differential", _reference_differential)
     port = SimpleNamespace(
         LocalServerRegistry=LocalServerRegistry,
         LocalTransport=LocalTransport, Address=Address,
@@ -1236,9 +1251,8 @@ async def test_differential_against_the_reference_server():
         DistributedLeaderElection=DistributedLeaderElection,
         engine=DeviceEngineConfig(capacity=8, num_peers=3, log_slots=32,
                                   device="cpu"))
-    script = _differential_script(seed=2024)
-    want = await _run_differential(ref, script)
-    got = await _run_differential(port, script)
+    script = _differential_script(seed=DIFFERENTIAL_SEED)
+    got = arun(_run_differential(port, script), timeout=300)
     assert got[0] == want[0], "answers differ"
     assert got[1] == want[1], "events differ"
     assert got[2] == want[2]
@@ -1247,3 +1261,8 @@ async def test_differential_against_the_reference_server():
                                           "DeviceQueueState"]
         + ["DeviceLockState"] + ["DeviceLeaderElectionState"])
     assert ("lock", "granted") in want[1] and len(want[1]) > 3
+
+
+LONG_RUNS[f"{os.path.basename(__file__)}::"
+          "test_differential_against_the_reference_server"] = [
+    ("server differential", _reference_differential, ())]

@@ -10,7 +10,14 @@ the expiry fan-out through the log, a graceful close, and an abandoned
 flush followed by ``recover``. Each scenario's trace of answers, and the
 engines' rounds, events, metric counters and state leaves, must be equal;
 exact, integers only.
+
+Each scenario's reference side depends on nothing of the port's: it runs
+once, in a worker process started with the session's first port file
+(``torch_reference.LONG_RUNS``), and its trace and end state come back to
+the case, which runs the port's side and compares.
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -27,9 +34,14 @@ from copycat_tpu_torch.models import session_client as tclient  # noqa: E402
 from copycat_tpu_torch.models import sessions as tsessions  # noqa: E402
 from torch_reference import (  # noqa: E402
     DEEP_SHAPE,
+    LONG_RUNS,
+    SUITE_AHEAD,
     assert_same_state,
     counters,
-    engine_pair,
+    deep_config,
+    port_engine,
+    reference_engine,
+    state_leaves,
 )
 
 G, P = DEEP_SHAPE["groups"], DEEP_SHAPE["peers"]
@@ -189,20 +201,51 @@ def abandoned_flush_then_recover(rg, pkg, trace):
     assert 1 <= val <= 5 and trace[-1] == val + 10
 
 
-@pytest.mark.parametrize("scenario", [
-    exactly_once_fifo, interleaved_sessions, reads_at_every_level,
-    edge_cache, lock_events_and_expiry, graceful_close,
-    abandoned_flush_then_recover], ids=lambda f: f.__name__)
+def engine_end(rg) -> tuple:
+    """What a case holds equal at its end: rounds, events,
+    metric counters and state leaves."""
+    return rg.rounds, rg.events, counters(rg), state_leaves(rg)
+
+
+def assert_same_end(want, port, what="end"):
+    """The port's engine ended as the reference's did (``want``, its
+    :func:`engine_end`)."""
+    rounds, events, counts, leaves = want
+    assert port.rounds == rounds and port.events == events, what
+    assert counters(port) == counts, what
+    assert_same_state(leaves, port, what)
+
+
+SCENARIOS = [exactly_once_fifo, interleaved_sessions, reads_at_every_level,
+             edge_cache, lock_events_and_expiry, graceful_close,
+             abandoned_flush_then_recover]
+CLASSIC = dict(seed=3, monotone=False)
+
+
+def _reference_run(name: str, seed: int = 11, monotone: bool = True):
+    """The reference's side of one scenario: its engine's state when the
+    leaders are elected, the scenario's trace, and the engine's end."""
+    ref = reference_engine(seed, deep_config(monotone_tag_accept=monotone))
+    elected = state_leaves(ref)
+    trace = []
+    globals()[name](ref, REF, trace)
+    return elected, trace, engine_end(ref)
+
+
+def _port_matches(name: str, seed: int = 11, monotone: bool = True):
+    elected, want, end = SUITE_AHEAD.get("session_client",
+                                         _reference_runs)[name]
+    port = port_engine(seed, deep_config(monotone_tag_accept=monotone))
+    assert_same_state(elected, port, "leaders elected")
+    trace = []
+    globals()[name](port, PORT, trace)
+    assert trace == want
+    assert_same_end(end, port)
+
+
+@pytest.mark.parametrize("scenario", SCENARIOS, ids=lambda f: f.__name__)
 def test_session_client_scenario_matches_reference(scenario):
-    ref, port = engine_pair(seed=11)
-    traces = []
-    for rg, pkg in ((ref, REF), (port, PORT)):
-        traces.append([])
-        scenario(rg, pkg, traces[-1])
-    assert traces[1] == traces[0]
-    assert port.rounds == ref.rounds and port.events == ref.events
-    assert counters(port) == counters(ref)
-    assert_same_state(ref, port, "end")
+    _port_matches(scenario.__name__)
 
 
 def classic_engine(rg, pkg, trace):
@@ -227,14 +270,18 @@ def classic_engine(rg, pkg, trace):
 
 
 def test_classic_engine_matches_reference():
-    from torch_reference import deep_config
-    ref, port = engine_pair(seed=3, jcfg=deep_config(
-        monotone_tag_accept=False))
-    traces = []
-    for rg, pkg in ((ref, REF), (port, PORT)):
-        traces.append([])
-        classic_engine(rg, pkg, traces[-1])
-    assert traces[1] == traces[0]
-    assert port.rounds == ref.rounds and port.events == ref.events
-    assert counters(port) == counters(ref)
-    assert_same_state(ref, port, "end")
+    _port_matches("classic_engine", **CLASSIC)
+
+
+def _reference_runs() -> dict:
+    """Every scenario's reference side, in one worker: they share the
+    reference's compiled programs."""
+    runs = {f.__name__: _reference_run(f.__name__) for f in SCENARIOS}
+    runs["classic_engine"] = _reference_run("classic_engine", **CLASSIC)
+    return runs
+
+
+LONG_RUNS.update({f"{os.path.basename(__file__)}::{test}": [
+    ("session_client", _reference_runs, ())] for test in (
+        "test_session_client_scenario_matches_reference",
+        "test_classic_engine_matches_reference")})

@@ -8,8 +8,13 @@ and on the port's (drawing the reference's timers), through the
 reference's own lock and election facades, which drive any engine with
 the same ``submit``/``run_until``/``events``/``sessions`` surface. Every
 facade answer, every session's fate, the events, the results and the
-final state must be equal.
+final state must be equal. The reference's runs depend on nothing of the
+port's: they run once, in a worker process started with the session's
+first port file (``torch_reference.LONG_RUNS``), and come back to the
+cases.
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -28,7 +33,13 @@ from copycat_tpu.ops.apply import OP_LOCK_ACQUIRE, ResourceConfig  # noqa
 from copycat_tpu.ops.consensus import Config  # noqa: E402
 
 from copycat_tpu_torch.models import sessions as tsessions  # noqa: E402
-from torch_reference import ReferenceDrawnGroups, assert_same_state  # noqa
+from torch_reference import (  # noqa: E402
+    LONG_RUNS,
+    SUITE_AHEAD,
+    ReferenceDrawnGroups,
+    assert_same_state,
+    state_leaves,
+)
 
 G, P, L, S = 4, 3, 32, 4
 # the pools the scenarios use (value, lock, election, events), so the
@@ -104,26 +115,44 @@ def graceful_close(groups, expired, trace):
         holder.lock()
 
 
-@pytest.mark.parametrize("scenario", [crashed_holder, crashed_waiter,
-                                      crashed_leader, graceful_close],
-                         ids=lambda f: f.__name__)
+SCENARIOS = [crashed_holder, crashed_waiter, crashed_leader, graceful_close]
+
+
+def _run(groups, scenario, expired):
+    groups.sessions.timeout_rounds = (10_000 if scenario is graceful_close
+                                      else 25)
+    groups.wait_for_leaders()
+    trace = []
+    scenario(groups, expired, trace)
+    return trace
+
+
+def _reference_runs() -> dict:
+    """Every scenario on the reference's engine: its trace, rounds,
+    events, results and final state leaves."""
+    runs = {}
+    for scenario in SCENARIOS:
+        ref = JaxRaftGroups(G, P, log_slots=L, submit_slots=S, seed=7,
+                            config=JCFG)
+        trace = _run(ref, scenario, jsessions.SessionExpiredError)
+        runs[scenario.__name__] = (trace, ref.rounds, ref.events,
+                                   ref.results, state_leaves(ref))
+    return runs
+
+
+@pytest.mark.parametrize("scenario", SCENARIOS, ids=lambda f: f.__name__)
 def test_session_scenario_matches_reference(scenario):
-    timeout = 10_000 if scenario is graceful_close else 25
-    runs = []
-    for groups, expired in (
-            (JaxRaftGroups(G, P, log_slots=L, submit_slots=S, seed=7,
-                           config=JCFG),
-             jsessions.SessionExpiredError),
-            (ReferenceDrawnGroups(G, P, L, S, JCFG, seed=7),
-             tsessions.SessionExpiredError)):
-        groups.sessions.timeout_rounds = timeout
-        groups.wait_for_leaders()
-        trace = []
-        scenario(groups, expired, trace)
-        runs.append((groups, trace))
-    (ref, want), (port, got) = runs
+    want, rounds, events, results, leaves = SUITE_AHEAD.get(
+        "sessions", _reference_runs)[scenario.__name__]
+    port = ReferenceDrawnGroups(G, P, L, S, JCFG, seed=7)
+    got = _run(port, scenario, tsessions.SessionExpiredError)
     assert got == want
-    assert port.rounds == ref.rounds
-    assert port.events == ref.events
-    assert port.results == ref.results
-    assert_same_state(ref, port, "end")
+    assert port.rounds == rounds
+    assert port.events == events
+    assert port.results == results
+    assert_same_state(leaves, port, "end")
+
+
+LONG_RUNS[f"{os.path.basename(__file__)}::"
+          "test_session_scenario_matches_reference"] = [
+    ("sessions", _reference_runs, ())]

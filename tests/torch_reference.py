@@ -1,8 +1,10 @@
 """Helpers for the tests that hold ``copycat_tpu_torch`` against the JAX
 reference: a port engine that draws its election timers as the
-reference's ``RaftGroups`` does, leaf-by-leaf state comparison, and the
-fixture that releases the reference's compiled programs after each test
-file.
+reference's ``RaftGroups`` does, leaf-by-leaf state comparison, the
+reference's side of a case run ahead in worker processes
+(:data:`LONG_RUNS`, :data:`SUITE_AHEAD`) with a :class:`Transcript` of
+what the port's side must then show, and the fixture that releases the
+reference's compiled programs after each test file.
 
 Every XLA CPU executable a process loads holds its own memory mappings
 (about 18 each), and one pytest process running the whole suite loads
@@ -17,7 +19,7 @@ reference imports it.
 import gc
 import multiprocessing
 import os
-from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
+from concurrent.futures import Future, ProcessPoolExecutor
 
 import jax
 import numpy as np
@@ -33,32 +35,47 @@ def release_jax_programs(request):
     """At the end of the test file: drop every compiled JAX program, so
     their executables and memory mappings are released (later files
     compile again, or read the persistent cache). At its start: the
-    session's long reference runs (:data:`LONG_RUNS`), once."""
+    session's long reference runs (:data:`LONG_RUNS`), once; their
+    workers end after the file in which the last of them finished."""
     start_long_runs(request.session)
     yield
     jax.clear_caches()
     gc.collect()
+    SUITE_AHEAD.release_workers()
+
+
+@pytest.fixture(autouse=True)
+def no_leaked_profiler():
+    """After each test of a file that imports it: stop the process-wide
+    profiler of either package that a host left running. A crashed server
+    (SIGKILL semantics), or a server or supervisor built and never closed,
+    keeps its refcounted sampler thread and its event-loop patch, and
+    every later test of the session would pay for them."""
+    yield
+    from copycat_tpu.utils import profiler as ref_profiler
+    from copycat_tpu_torch.utils import profiler
+    for mod in (profiler, ref_profiler):
+        with mod._ACQUIRE_LOCK:
+            leaked, mod.PROFILER = mod.PROFILER, None
+        if leaked is not None:
+            leaked.stop()
 
 
 class Ahead:
-    """Reference computations started ahead, in background workers.
+    """Reference computations started ahead, in worker processes.
 
     Most of a differential test's time on the CPU is the reference
-    compiling its programs. A test file whose reference side never
-    depends on the port's (the same seeded inputs go to both) starts
-    those computations here (:meth:`start`, from a module fixture or
-    :func:`start_long_runs`, never while the module is imported): in
-    threads (XLA compiles with the GIL released, and a thread shares the
-    process's compiled programs) or, with ``processes``, in worker
-    processes (no GIL shared at all; the results come back pickled). A
-    test takes its result with :meth:`get`, which waits for it, or
-    computes it in the test's own thread when it was never started or
-    its worker could not run it. :meth:`close` waits for every
-    computation."""
+    compiling its programs and stepping. A test file whose reference side
+    never depends on the port's (the same seeded inputs go to both)
+    registers it in :data:`LONG_RUNS`; :meth:`start` runs it in a spawned
+    worker process (no GIL shared with the tests; the result comes back
+    pickled), never while a module is imported. A test takes its result
+    with :meth:`get`, which waits for it, or computes it in the test's own
+    process (once) when it was never started or its worker could not run
+    it."""
 
-    def __init__(self, workers: int | None = None, processes: bool = False):
-        self._workers = workers or max(1, min(4, os.cpu_count() or 1))
-        self._processes = processes
+    def __init__(self, workers: int):
+        self._workers = workers
         self._pool = None
         self._futures = {}
 
@@ -67,11 +84,10 @@ class Ahead:
             return
         try:
             if self._pool is None:
-                self._pool = (ProcessPoolExecutor(
-                    self._workers, mp_context=multiprocessing.get_context(
-                        "spawn")) if self._processes
-                    else ThreadPoolExecutor(self._workers,
-                                            thread_name_prefix="ahead"))
+                self._pool = ProcessPoolExecutor(
+                    self._workers,
+                    mp_context=multiprocessing.get_context("spawn"),
+                    initializer=_worker_init)
             self._futures[key] = self._pool.submit(fn, *args)
         except (OSError, RuntimeError):   # no workers here: get computes
             pass
@@ -83,44 +99,44 @@ class Ahead:
                 return future.result()
             except Exception:   # noqa: BLE001 — recomputed (and raised) here
                 pass
-        return fn(*args)
+        value = fn(*args)
+        self._futures[key] = done = Future()    # the next get takes it
+        done.set_result(value)
+        return value
 
-    def close(self) -> None:
-        if self._pool is not None:
-            self._pool.shutdown(wait=True)
-        self._pool, self._futures = None, {}
-
-
-def warm_reference(groups, peers, log_slots, submit_slots, config, seed=0,
-                   fused=()):
-    """Compile the reference's programs for one engine shape and config
-    (the reference shares them between every ``RaftGroups`` of a config),
-    by running a throwaway engine: its step (the leader election), its
-    query program (one value read: every config has the value pool) and the
-    fused ``step_rounds(n)`` program for each ``n`` of ``fused``. Meant
-    for :class:`Ahead`: a file's engines then find the programs built."""
-    from copycat_tpu.models import RaftGroups as JaxRaftGroups
-    from copycat_tpu.ops.apply import OP_VALUE_GET
-    rg = JaxRaftGroups(groups, peers, log_slots=log_slots,
-                       submit_slots=submit_slots, seed=seed, config=config)
-    rg.wait_for_leaders()
-    rg.serve_query(0, OP_VALUE_GET)
-    for n in fused:
-        rg.step_rounds(n)
+    def release_workers(self) -> None:
+        """Once every computation has finished, end the workers (their
+        results stay), so no idle process outlives the work."""
+        if self._pool is not None and all(
+                f.done() for f in self._futures.values()):
+            self._pool.shutdown(wait=False)
+            self._pool = None
 
 
-def warm_reference_engine(engine_config):
-    """:func:`warm_reference` for the reference server's device engine: the
-    engine's own warm-up (its step) and one vector read (its query
-    program)."""
-    from copycat_tpu.manager.device_executor import DeviceEngine
-    from copycat_tpu.ops.apply import OP_VALUE_GET
-    engine = DeviceEngine(engine_config)
-    engine._ensure()
-    engine.run_query_vector([0], [OP_VALUE_GET], [0], [0], [0])
+def as_numpy(tree):
+    """``tree`` with every JAX array and tensor in it as a numpy array: a
+    worker's result comes back so (unpickled, a JAX array is put on a
+    device again, and a tensor crosses as a shared-memory descriptor)."""
+    def leaf(x):
+        if isinstance(x, torch.Tensor):
+            return x.numpy()
+        return np.asarray(x) if isinstance(x, jax.Array) else x
+    return jax.tree.map(leaf, tree)
 
 
-#: Reference runs that compile for seconds each, by the test function that
+def _worker_init():
+    """A worker process runs below the tests' priority, and compiles into
+    the session's persistent compile cache, as the tests' process does
+    (``tests/conftest.py``), so that what a worker compiled, the tests
+    load rather than compile."""
+    os.nice(10)
+    from copycat_tpu.utils.platform import enable_compilation_cache
+    enable_compilation_cache()
+
+
+#: Computations a test holds the port against that depend on nothing of
+#: the port's run (the reference's side of a case, and the sequential
+#: apply of ``test_torch_apply_window.py``), by the test function that
 #: takes them (``"file.py::test_name"``): ``[(key, function, args)]``,
 #: registered when the file is imported (the function must be a module
 #: attribute: a worker process imports it). When the session holds the
@@ -129,7 +145,7 @@ def warm_reference_engine(engine_config):
 #: the test comes, without taking the GIL from the tests meanwhile; it
 #: takes each result with ``SUITE_AHEAD.get``.
 LONG_RUNS: dict = {}
-SUITE_AHEAD = Ahead(workers=2, processes=True)
+SUITE_AHEAD = Ahead(workers=4)
 
 
 def start_long_runs(session) -> None:
@@ -186,15 +202,67 @@ def as_reference_drawn(rg, key):
     return rg
 
 
+def state_leaves(rg) -> dict:
+    """An engine's state as numpy leaves by name (what crosses from a
+    worker process: :func:`assert_same_state` takes it for ``ref``)."""
+    return convert.flat_leaves(rg.state)
+
+
 def assert_same_state(ref, port, what):
-    """Every state leaf of two engines equal, value and dtype."""
-    want = convert.flat_leaves(ref.state)
+    """Every state leaf of two engines equal, value and dtype; ``ref`` may
+    be the reference engine's :func:`state_leaves`."""
+    want = ref if isinstance(ref, dict) else state_leaves(ref)
     got = convert.flat_leaves(port.state)
     assert want.keys() == got.keys()
     for name, w in want.items():
         assert got[name].dtype == w.dtype, (name, what)
         np.testing.assert_array_equal(got[name], w,
                                       err_msg=f"{name} at {what}")
+
+
+def assert_same_value(want, got, what):
+    """``got`` equal to ``want``: state leaves (a dict of arrays) leaf by
+    leaf with their dtypes, anything else by ``==``."""
+    if isinstance(want, dict) and any(
+            isinstance(v, np.ndarray) for v in want.values()):
+        assert_same_leaves(want, got, what)
+    else:
+        assert got == want, what
+
+
+class Transcript:
+    """What one engine showed at each check of a script, in order: the
+    reference's run records it (in a worker process), and the port's run
+    of the same script is held against it check by check (``replay``),
+    so two engines in lockstep need not share a process."""
+
+    def __init__(self, replay=None):
+        self.values = [] if replay is None else list(replay)
+        self._replay = replay is not None
+        self._at = 0
+
+    def __call__(self, got, what=""):
+        if not self._replay:
+            self.values.append(got)
+            return got
+        assert self._at < len(self.values), f"{what}: past the record"
+        want = self.values[self._at]
+        self._at += 1
+        assert_same_value(want, got, f"{what} (check {self._at})")
+        return got
+
+    def given(self, value):
+        """An input the reference's run chose (``value``, recorded) and the
+        port's run takes as it was recorded, unchecked."""
+        if not self._replay:
+            self.values.append(value)
+            return value
+        self._at += 1
+        return self.values[self._at - 1]
+
+    def done(self):
+        """Every recorded check was made."""
+        assert self._at == len(self.values), (self._at, len(self.values))
 
 
 def assert_same_leaves(ref, port, what):
@@ -236,25 +304,34 @@ def deep_config(**overrides):
                                               **overrides)
 
 
-def engine_pair(seed, jcfg=None, leaders=True):
-    """The reference's ``RaftGroups`` and the port's, drawing the same
-    timers, at ``DEEP_SHAPE`` — with every group's leader elected."""
+def reference_engine(seed, jcfg=None, leaders=True):
+    """The reference's ``RaftGroups`` at ``DEEP_SHAPE`` (one compiled
+    deep program for every drive, :func:`_full_payload` and
+    :func:`_wide_accumulators`), with every group's leader elected."""
     from copycat_tpu.models import RaftGroups as JaxRaftGroups
     jcfg = jcfg or deep_config()
     s = DEEP_SHAPE
     ref = JaxRaftGroups(s["groups"], s["peers"], log_slots=s["log_slots"],
                         submit_slots=s["submit_slots"], seed=seed,
                         config=jcfg)
-    port = ReferenceDrawnGroups(s["groups"], s["peers"], s["log_slots"],
-                                s["submit_slots"], jcfg, seed=seed)
     ref._stage_submits = _full_payload(ref)
     if jcfg.monotone_tag_accept:
         ref._deep_fn = _wide_accumulators(ref._deep_fn())
     if leaders:
         ref.wait_for_leaders()
+    return ref
+
+
+def port_engine(seed, jcfg=None, leaders=True):
+    """The port's engine drawing the reference's timers, at
+    ``DEEP_SHAPE``, with every group's leader elected."""
+    jcfg = jcfg or deep_config()
+    s = DEEP_SHAPE
+    port = ReferenceDrawnGroups(s["groups"], s["peers"], s["log_slots"],
+                                s["submit_slots"], jcfg, seed=seed)
+    if leaders:
         port.wait_for_leaders()
-        assert_same_state(ref, port, "leaders elected")
-    return ref, port
+    return port
 
 
 def _full_payload(rg):
