@@ -1,43 +1,59 @@
-"""The quorum kernels of this checkout against another checkout's, timed
-on one CUDA card on the same inputs.
+"""The quorum kernels of this checkout against other checkouts', timed on
+one CUDA card on the same inputs.
 
-    python3 ab_quorum_kernels.py OTHER_CHECKOUT
+    python3 ab_quorum_kernels.py OTHER_CHECKOUT [OTHER_CHECKOUT ...]
 
-Builds ``OTHER_CHECKOUT/copycat_tpu_torch/csrc/quorum_phase.cu`` and
-``kth_largest.cu`` (with the headers beside them) as ``ops/kernels.py``
-builds this checkout's, and calls both checkouts' libraries through this
-checkout's wrappers ``admit_submits_cuda``, ``ack_commit_cuda`` and
-``kth_largest_cuda`` (the same checks, allocations and C entry points), in
-turns: other, this, this, other. Inputs of the fused kernels:
+Loads each other checkout's ``copycat_tpu_torch/ops/kernels.py`` as a
+module of its own, which builds that checkout's ``csrc/quorum_phase.cu``
+and ``kth_largest.cu`` (with the headers beside them) into that
+checkout's build directory, and calls each checkout's kernels through its
+own wrappers (``admit_submits_cuda``, ``ack_commit_cuda``,
+``kth_largest_cuda``: their checks, allocations and C entry points), in
+turns: other, this, this, other, for every other checkout in turn. Inputs
+of the fused kernels:
 
-- the wide serves' own step inputs (``chip_smoke.wide_serve``):
-  ``RaftGroups(10_000, 9)`` and ``(10_000, 16)``, and ``(10_000, 9)`` with
-  5 voters under dynamic membership, S=4;
-- drawn inputs (``copycat_tpu_torch/cases.py``) at G=10,000, S=16, L=64:
-  P = 32 static and masked, P = 33 static, and P = 3 static and P = 5
-  masked, whose unrolled kernels the two checkouts may share, as a
-  measure of the noise.
+- the step's own inputs (``chip_smoke.fused_fns``: the third round of a
+  bench cell, every leader elected) at the four widths the paths run the
+  static kernels at: the counter bench's G=10,000 × P=3, S=16, L=64; the
+  mixed bench's G=100,000 × P=5, S=16, L=32 (six pools, the nemesis); a
+  server engine's G=10,000 × P=3, S=4, L=64; ``spi``'s engine, G=1,024 ×
+  P=3, S=4, L=16;
+- drawn inputs (``copycat_tpu_torch/cases.py``) member-masked at P = 5:
+  G=100,000, S=16, L=32 (the membership serve's width) and G=10,000,
+  S=16, L=32 (the membership path's);
+- served steps' own inputs (``chip_smoke.wide_serve``: a counter op and
+  a lane added per group, S=4, L=64): ``RaftGroups(100_000, 5)`` with 3
+  voters under dynamic membership (the masked kernels at the membership
+  serve's width); the wide serves ``RaftGroups(10_000, 9)`` and
+  ``(10_000, 16)``, and ``(10_000, 9)`` with 5 voters; and drawn inputs
+  at G=10,000, S=16, L=64: P = 32 static and masked, P = 33 static.
 
-The tally alone runs on drawn rows (``chip_smoke.edge_rows``: duplicates
-and INT32_MIN lanes) at G=10,000, k = P // 2 + 1, for P = 9, 16, 32 and
-33, and P = 3 as the control.
+The control row is the tally alone (``csrc/kth_largest.cu``) at P = 3 on
+drawn rows (``chip_smoke.edge_rows``: duplicates and INT32_MIN lanes),
+G=10,000, k = 2, a kernel the checkouts may share: its spread between
+turns is the A/B's noise. P = 32 runs beside it.
 
 Each build's outputs are checked equal to the plain version first. Each
-kernel and shape prints one JSON line: device ms per call (100 calls in a
-CUDA graph, replayed 20 times) in each turn; the kernel's own duration on
-the device in each turn (``torch.profiler``, CUDA activity, 50 eager
-calls: from the kernel's start to its end, without the gap between two
-launches); and the bound. The card's name and power limit print first,
-then each kernel of this checkout's sources with its registers, spills and
-shared memory as ``nvcc -Xptxas -v`` reports them. Without a card it exits
-non-zero.
+kernel, shape and other checkout prints one JSON line: device ms per call
+(100 calls in a CUDA graph, replayed 20 times) in each turn; the kernel's
+own duration on the device in each turn (``torch.profiler``, CUDA
+activity, 50 eager calls: from the kernel's start to its end, without the
+gap between two launches); the eager call's ms (CUDA events around 200
+back-to-back calls, the wrapper's host work included); the bound
+(``chip_smoke.admit_bound`` / ``ack_bound`` / ``tally_bound``); and two
+floors timed in the same graph harness: an empty kernel launched over 4
+threads a group in blocks of 128, and one ``Tensor.copy_`` of int32 that
+reads and writes as many bytes as the call moves (half of them each way).
+The card's name and power limit print first, then each kernel of this
+checkout's sources with its registers, spills and stack frame as ``nvcc
+-Xptxas -v`` reports them. Without a card it exits non-zero.
 """
 
 from __future__ import annotations
 
 import argparse
-import contextlib
 import ctypes
+import importlib.util
 import json
 import pathlib
 import re
@@ -50,33 +66,65 @@ import torch
 
 import chip_smoke as cs
 
-# (P, member-masked, served): the wide serves, drawn P = 32 and 33, and
-# two unrolled shapes as controls
-SHAPES = ((9, False, True), (16, False, True), (9, True, True),
-          (32, False, False), (32, True, False), (33, False, False),
-          (3, False, False), (5, True, False))
-# P of the tally alone: the warp tiles, and an unrolled control
-TALLY_PEERS = (9, 16, 32, 33, 3)
+# the static kernels on the step's own inputs: (label, bench cell)
+STEP_SHAPES = (
+    ("counter", dict(scenario="counter")),
+    ("mixed", cs.MIXED),
+    ("server", dict(scenario="counter", groups=10_000, peers=3, log_slots=64,
+                    submit_slots=4)),
+    ("spi", dict(scenario="counter", groups=1_024, peers=3, log_slots=16,
+                 submit_slots=4)),
+)
+# drawn inputs: (label, G, P, S, L, member-masked)
+DRAWN_SHAPES = (
+    ("membership serve", 100_000, 5, 16, 32, True),
+    ("membership path", 10_000, 5, 16, 32, True),
+    ("drawn", 10_000, 32, 16, 64, False),
+    ("drawn", 10_000, 32, 16, 64, True),
+    ("drawn", 10_000, 33, 16, 64, False),
+)
+# served steps: (G, P, voters under dynamic membership, or None)
+SERVES = ((100_000, 5, 3), (10_000, 9, None), (10_000, 16, None),
+          (10_000, 9, 5))
+# P of the tally alone: the control (P = 3) and a warp tile
+TALLY_PEERS = (3, 32)
+EMPTY_SOURCE = r"""
+#include <cuda_runtime.h>
+__global__ void empty_kernel() {}
+extern "C" int empty_launch(int blocks, int threads, void* stream) {
+  empty_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
+}
+"""
 
 
-def entries(kernels, sources) -> dict:
-    """The C entry points of ``sources``, each built into this checkout's
-    build directory (keyed on that source's hash)."""
-    libs = kernels.build_libraries(sources)
-    fns = {}
-    for src, path in zip(sources, libs):
-        lib = ctypes.CDLL(str(path))
-        for name, argtypes in kernels.ENTRY_POINTS[src.name].items():
-            fn = fns[name] = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-    return fns
+def load_kernels(checkout: pathlib.Path, name: str):
+    """``checkout``'s ``ops/kernels.py`` as a module of its own, with its
+    libraries built and loaded."""
+    path = checkout / "copycat_tpu_torch" / "ops" / "kernels.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    module.load_libraries()
+    return module
+
+
+class Current:
+    """Stands for the kernels module of the build being timed: closures
+    made over it (``chip_smoke.step_fns``, ``wide_fns``) call that
+    build's wrappers."""
+
+    def __init__(self, module):
+        self.module = module
+
+    def __getattr__(self, name):
+        return getattr(self.module, name)
 
 
 def ptxas_report(kernels, source: pathlib.Path) -> list[str]:
     """One line per kernel of ``source``: its name with its template
     arguments, and what ``nvcc -Xptxas -v`` says of its registers, spills
-    and shared memory."""
+    and stack frame."""
     with tempfile.TemporaryDirectory() as tmp:
         proc = subprocess.run(
             [kernels._find_nvcc(), *kernels.NVCC_FLAGS, "-Xptxas", "-v",
@@ -94,6 +142,25 @@ def ptxas_report(kernels, source: pathlib.Path) -> list[str]:
         elif report and ("spill" in line or "Used" in line):
             report[name].append(line.split(":", 1)[-1].strip())
     return [f"{name}: {'; '.join(facts)}" for name, facts in report.items()]
+
+
+def empty_launcher(kernels):
+    """An empty kernel's launch, ``fn(threads)``, built with nvcc."""
+    tmp = pathlib.Path(tempfile.mkdtemp())
+    src, lib = tmp / "empty.cu", tmp / "empty.so"
+    src.write_text(EMPTY_SOURCE)
+    subprocess.run([kernels._find_nvcc(), *kernels.NVCC_FLAGS, "-o",
+                    str(lib), str(src)], check=True, capture_output=True)
+    fn = ctypes.CDLL(str(lib)).empty_launch
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def launch(threads: int) -> None:
+        err = fn((threads + 127) // 128, 128,
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"empty kernel launch failed: {err}")
+    return launch
 
 
 def kernel_ms(fn, calls: int = 50) -> float:
@@ -116,43 +183,44 @@ def kernel_ms(fn, calls: int = 50) -> float:
     return total / 1e3 / sum(e.count for e in kern)
 
 
-@contextlib.contextmanager
-def launching(kernels, fns: dict):
-    """While open, the wrappers launch through the entry points ``fns``."""
-    saved = {name: kernels._entries[name] for name in fns}
-    kernels._entries.update(fns)
-    try:
-        yield
-    finally:
-        kernels._entries.update(saved)
-
-
-def turns(kernels, builds: dict, kern, check) -> tuple[dict, dict]:
-    """Device ms per call (CUDA graph) and the kernel's own duration
-    (profiler) of ``kern`` in each build, in turns other, this, this,
-    other; ``check(build)`` holds its outputs against the plain version
-    first."""
-    ms = {b: [] for b in builds}
-    own = {b: [] for b in builds}
+def turns(current: Current, this, other, kern, check) -> dict:
+    """Device ms per call (CUDA graph), the kernel's own duration
+    (profiler) and the eager call's ms of ``kern`` in each build, in turns
+    other, this, this, other; ``check(build)`` holds its outputs against
+    the plain version first."""
+    out = {f"{b}_{m}": [] for b in ("other", "this")
+           for m in ("ms", "kernel_ms", "call_ms")}
     for build in ("other", "this", "this", "other"):
-        with launching(kernels, builds[build]):
-            check(build)
-            ms[build].append(cs.graph_ms(kern))
-            own[build].append(kernel_ms(kern))
-    return ms, own
+        current.module = this if build == "this" else other
+        check(build)
+        out[f"{build}_ms"].append(cs.graph_ms(kern))
+        out[f"{build}_kernel_ms"].append(kernel_ms(kern))
+        out[f"{build}_call_ms"].append(cs.time_ms(kern, iters=200,
+                                                  warmup=20))
+    current.module = this
+    for b in ("other", "this"):
+        for m in ("ms", "kernel_ms", "call_ms"):
+            out[f"{b}_mean_{m}"] = sum(out[f"{b}_{m}"]) / 2
+    return out
 
 
-def means(ms: dict, own: dict) -> dict:
-    return {"other_ms": ms["other"], "this_ms": ms["this"],
-            "other_mean_ms": sum(ms["other"]) / 2,
-            "this_mean_ms": sum(ms["this"]) / 2,
-            "other_kernel_ms": own["other"], "this_kernel_ms": own["this"]}
+def floors(empty, G: int, bound: dict, dev) -> dict:
+    """The two floors of a call that moves ``bound``'s bytes at G groups:
+    an empty kernel over 4 threads a group, and one int32 ``copy_`` that
+    reads and writes half the call's bytes each."""
+    nbytes = round(bound["bound_ms"] * cs.HBM_BYTES_PER_S / 1e3)
+    n = max(nbytes // 8, 1)
+    src = torch.ones(n, dtype=torch.int32, device=dev)
+    dst = torch.empty_like(src)
+    return {"empty_kernel_ms": cs.graph_ms(lambda: empty(4 * G)),
+            "copy_ms": cs.graph_ms(lambda: dst.copy_(src)),
+            "copy_bytes": 8 * n}
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("other", type=pathlib.Path,
-                        help="root of the other checkout")
+    parser.add_argument("others", type=pathlib.Path, nargs="+",
+                        help="roots of the other checkouts")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("ab_quorum_kernels: no CUDA card", file=sys.stderr)
@@ -161,6 +229,7 @@ def main() -> int:
     from copycat_tpu_torch.device import card_info
     from copycat_tpu_torch.models import RaftGroups
     from copycat_tpu_torch.ops import apply as ap
+    from copycat_tpu_torch.ops import consensus as cons
     from copycat_tpu_torch.ops import kernels
 
     dev = torch.device("cuda")
@@ -169,47 +238,64 @@ def main() -> int:
     for source in kernels.SOURCES:
         for line in ptxas_report(kernels, source):
             cs.say(f"ptxas: {line}")
-    other_csrc = args.other.resolve() / "copycat_tpu_torch" / "csrc"
-    builds = {"this": entries(kernels, kernels.SOURCES),
-              "other": entries(kernels, tuple(
-                  other_csrc / src.name for src in kernels.SOURCES))}
-    kernels._entries.update(builds["this"])
+    kernels.load_libraries()
+    others = {str(path): load_kernels(path.resolve(), f"ab_other_{i}")
+              for i, path in enumerate(args.others)}
+    current = Current(kernels)
+    empty = empty_launcher(kernels)
     rng = np.random.default_rng(9)
-    for P, masked, served in SHAPES:
-        if served:
-            _, seen = cs.wide_serve(RaftGroups, ap, bench.KERNELS, P,
-                                    voters=5 if masked else None)
-            fns = cs.step_fns(kernels, seen, f"the P={P} serve's step")[0]
-            S = seen["admit_submits"][0][3].shape[1]
-        else:
-            S = 16
-            fns = cs.wide_fns(kernels, cases, dev, rng, 10_000, P, S, 64,
-                              masked)
+
+    def fused_rows(fns: dict, what: dict, G: int) -> None:
         for name in ("admit_submits", "ack_commit"):
             kern, plain, _, bound = fns[name]
-            what = f"{name} at P={P}" + (" (masked)" if masked else "")
-            timed = turns(kernels, builds, kern, lambda build: cs.max_err(
-                kern(), plain(), f"{what}, {build} build"))
-            cs.say(json.dumps({
-                "name": name, "P": P, "masked": masked, "G": 10_000, "S": S,
-                "inputs": "the serve's step" if served else "drawn",
-                **means(*timed), **bound, "card": card}))
+            label = f"{name} at {what}"
+            floor = floors(empty, G, bound, dev)
+            for other_name, other in others.items():
+                timed = turns(current, kernels, other, kern,
+                              lambda build: cs.max_err(
+                                  kern(), plain(), f"{label}, {build} build"))
+                cs.say(json.dumps({"name": name, **what, "other": other_name,
+                                   **timed, **bound, **floor, "card": card}))
+
+    for label, cell in STEP_SHAPES:
+        seen = cs.step_inputs(bench, cons, dev, cs.STEP_FNS, **cell)
+        fns = cs.step_fns(current, seen, f"the {label} step's inputs")[0]
+        (G, P), S = seen["admit_submits"][0][0].shape, \
+            seen["admit_submits"][0][3].shape[1]
+        L = seen["ack_commit"][1]["l_log_term"].shape[1]
+        fused_rows(fns, {"shape": label, "G": G, "P": P, "S": S, "L": L,
+                         "masked": False, "inputs": "the step's"}, G)
+    for label, G, P, S, L, masked in DRAWN_SHAPES:
+        fns = cs.wide_fns(current, cases, dev, rng, G, P, S, L, masked)
+        fused_rows(fns, {"shape": label, "G": G, "P": P, "S": S, "L": L,
+                         "masked": masked, "inputs": "drawn"}, G)
+    for G, P, voters in SERVES:
+        _, seen = cs.wide_serve(RaftGroups, ap, bench.KERNELS, P,
+                                voters=voters, G=G)
+        fns = cs.step_fns(current, seen, f"the P={P} serve's step")[0]
+        S = seen["admit_submits"][0][3].shape[1]
+        fused_rows(fns, {"shape": "serve", "G": G, "P": P, "S": S, "L": 64,
+                         "masked": voters is not None,
+                         "inputs": "the serve's step"}, G)
     for P in TALLY_PEERS:
         G, k = 10_000, P // 2 + 1
         x = torch.from_numpy(cs.edge_rows(rng, G, P)).to(dev)
         want = kernels.kth_largest_plain(x, k)
 
         def same(build):
-            if not torch.equal(kernels.kth_largest_cuda(x, k), want):
+            if not torch.equal(current.kth_largest_cuda(x, k), want):
                 raise AssertionError(f"kth_largest at P={P}, {build} build "
                                      "differs from the plain version")
 
-        timed = turns(kernels, builds, lambda: kernels.kth_largest_cuda(x, k),
-                      same)
-        cs.say(json.dumps({
-            "name": "kth_largest", "P": P, "k": k, "G": G, "inputs": "drawn",
-            **means(*timed), **cs.bounds(G * P * 4 + G * 4, 2 * G * P * P),
-            "card": card}))
+        bound = cs.tally_bound(G, P)
+        floor = floors(empty, G, bound, dev)
+        for other_name, other in others.items():
+            timed = turns(current, kernels, other,
+                          lambda: current.kth_largest_cuda(x, k), same)
+            cs.say(json.dumps({
+                "name": "kth_largest", "P": P, "k": k, "G": G,
+                "inputs": "drawn", "other": other_name, **timed, **bound,
+                **floor, "card": card}))
     return 0
 
 

@@ -16,8 +16,13 @@ Phases, each of which raises (and so exits non-zero) on failure:
    inputs (leaderless groups, commit candidate 0, candidates below the
    ring's window, stale leaders, duplicate matchIndex values, submits all
    refused by backpressure), each static and member-masked (random views
-   from one member to every lane, the leader outside its own view); plus
-   the floor-mod and first-index argmax the step relies on;
+   from one member to every lane, the leader outside its own view); at P
+   = 3 and 5 on ``cases.EDGE_SHAPES`` (G = 1, 31, 10,001 and 100,003; S =
+   1, 4, 16, 17 and 256; L = 1; and the shapes that take phase 1's four
+   slots a thread in tiles of 1, 2, 4 and 32 threads, the last over three
+   steps), each aligned and with every input one element past the start
+   of its storage; plus the floor-mod and first-index argmax the step
+   relies on;
 3. counter path — the consensus step on the card (fused kernels) and on
    the CPU (plain versions) from one state and one set of timer draws,
    G=1,000, P=3, L=64, S=16, counters only, 50 rounds under random
@@ -55,16 +60,19 @@ Phases, each of which raises (and so exits non-zero) on failure:
    ``drive_vector`` against the per-group prefix sums, and a crashed lock
    holder's session expiring so that its lock passes to the queued
    waiter;
-10. counter bench — the counter bench at full size (G=10,000 × P=3 × L=64
-    × S=16), one launch of each fused kernel per round; each kernel's time
-    per call beside its plain version, a library call computing the same
-    function where there is one, and its bound — the fused kernels on the
-    inputs the bench's step gives them; then a short ``torch.profiler``
-    window of the same step: kernel time, the device's idle share and
-    launches per round;
+10. counter bench — the counter bench at full width (G=10,000 × P=3 × L=64
+    × S=16), 100 rounds × 3 (the reference runs 200 × 5), one launch of
+    each fused kernel per round; each kernel's time per call beside its
+    plain version, a library call computing the same function where there
+    is one, and its bound — the fused kernels on the inputs the bench's
+    step gives them, and on a counter step at the server engine's width
+    (G=10,000, L=64, S=4) and at spi's (G=1,024, L=16, S=4); then a short
+    ``torch.profiler`` window of the same step: kernel time, the device's
+    idle share and launches per round;
 11. mixed bench — BASELINE config #5 at full width (G=100,000 × P=5 ×
     L=32 × S=16) under the partition nemesis, budgets 4,6,4,6,4,4,4,4,
-    timers 2-4, 200 rounds × 3 repetitions (the reference runs 5): committed ops/s, ms/round, p50/p99 commit latency, one
+    timers 2-4, 100 rounds × 2 repetitions (the reference runs 200 ×
+    5): committed ops/s, ms/round, p50/p99 commit latency, one
     launch of each fused kernel per round, and replicas at equal applied
     index holding equal resource leaves; the fused kernels timed on the
     mixed step's inputs; the apply's time per round; a profiler window;
@@ -73,9 +81,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
 13. query lane — the ``map_read`` cell (G=10,000 × P=3 × L=64, 16 puts
     through the log and 16 gets through ``query_step`` per group and
     round) at both read levels, every served get checked against the
-    value the puts wrote;
+    value the puts wrote, 30 rounds × 2;
 14. elections — the ``election`` cell (G=1,000 × P=3, isolation nemesis
-    with period 15, seed 2, 200 rounds × 5), with no term of any group
+    with period 15, seed 2, 100 rounds × 3), with no term of any group
     led by two lanes;
 15. deep path — ``deep_scan`` on the card and on the CPU from one state
     and one set of draws, G=1,000 × P=3, L=64, S=16, counters only,
@@ -106,7 +114,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
     alone, timed on those at G = 10,000; and ``kth_largest`` on drawn
     rows, equal to its plain version bit for bit at P = 9, 16, 17, 32,
     33, 64 and 130, G = 10,000 and 1,001, k = 1, P // 2 + 1 and P, and
-    timed beside ``torch.topk`` at P = 9, 16, 32 and 33;
+    timed beside ``torch.topk`` at each of them (G = 10,000, k = P // 2 +
+    1);
 19. checkpoint — the mixed cell's engine (G=100,000 × P=5, L=32, six
     pools, budgets, flow control) after 20 rounds under the nemesis,
     saved with ``save_bytes`` and loaded onto the card: every leaf equal,
@@ -213,12 +222,14 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 TRACE_DIR = pathlib.Path(__file__).resolve().parent / "_smoke_traces"
 SCALAR_OPS_PER_S = 67e12        # H100 SXM 32-bit rate outside the tensor cores
 MIXED = dict(scenario="mixed", groups=100_000, peers=5)
-MIXED_ROUNDS, MIXED_REPEATS = 200, 3    # the reference runs 200 x 5
+# The host-bound benches, cut in depth so that the script stays inside 60%
+# of its limit (PERF.md, Findings): the reference runs each 200 rounds x 5
+# repetitions; G, P and L stay the reference's.
+COUNTER_ROUNDS, COUNTER_REPEATS = 100, 3
+MIXED_ROUNDS, MIXED_REPEATS = 100, 2
 SHORT_ROUNDS, SHORT_REPEATS = 20, 2
-# the reference runs 200 x 5; 100 x 3 put the whole script at 61-63% of
-# its limit once the server phase was added (PERF.md, PR 7 runs 6-7)
-QUERY_ROUNDS, QUERY_REPEATS = 50, 3
-ELECTION_ROUNDS, ELECTION_REPEATS = 200, 5
+QUERY_ROUNDS, QUERY_REPEATS = 30, 2
+ELECTION_ROUNDS, ELECTION_REPEATS = 100, 3
 # The plain versions take 0.1-3 ms a call, a hundred times a kernel's
 # time or more: they are timed over fewer calls (100 in a graph, 50
 # eager), so that the script, with the wide phase's seven shapes, stays
@@ -229,6 +240,14 @@ PLAIN_CALLS = dict(iters=50, warmup=5)
 
 def say(msg: str) -> None:
     print(msg, flush=True)
+
+
+def say_cut(bench, name: str, rounds: int, repeats: int) -> None:
+    """Print how far a bench is cut from the reference's depth."""
+    if (rounds, repeats) != (bench.ROUNDS, bench.REPEATS):
+        say(f"{name}: cut to {rounds} rounds x {repeats} repetitions (the "
+            f"reference runs {bench.ROUNDS} x {bench.REPEATS}); G, P and L "
+            "as the reference's")
 
 
 def time_ms(fn, iters: int = 500, warmup: int = 50) -> float:
@@ -288,13 +307,13 @@ def on_card(case: dict, dev) -> dict:
     return {k: torch.from_numpy(v).to(dev) for k, v in case.items()}
 
 
-def widen_ring(ring: torch.Tensor) -> torch.Tensor:
+def widen_ring(ring: torch.Tensor, first: int = 0) -> torch.Tensor:
     """The ring as the step hands it over: a column slice of a [G, L+1]
-    tensor, rows L+1 elements apart."""
-    wide = torch.zeros((ring.shape[0], ring.shape[1] + 1), dtype=ring.dtype,
-                       device=ring.device)
-    wide[:, :-1] = ring
-    return wide[:, :-1]
+    tensor, rows L+1 elements apart, from column ``first`` (0 or 1)."""
+    G, L = ring.shape
+    wide = torch.zeros((G, L + 1), dtype=ring.dtype, device=ring.device)
+    wide[:, first:first + L] = ring
+    return wide[:, first:first + L]
 
 
 def max_err(got, want, what: str) -> int:
@@ -340,11 +359,33 @@ def phase_kernel(kernels, cases, dev) -> dict:
                         f"kernel != plain at G={G} P={P} k={k}: err {err}")
                 worst["kth_largest"] = max(worst["kth_largest"], err)
                 n["kth_largest"] += 1
-            fused.append((G, P) + ((5, 16) if G == 1_001 else (16, 64)))
-    fused.append((100_000, 5, 16, 32))      # the mixed bench's shape
-    for G, P, S, L in fused:
+            fused.append((G, P) + ((5, 16) if G == 1_001 else (16, 64))
+                         + (False,))
+    fused.append((100_000, 5, 16, 32, False))   # the mixed bench's shape
+    # the boundaries of the P <= 8 kernels' tiles, blocks, slot steps and
+    # ring, each aligned and with every input one element past the start of
+    # its storage (phase 1 then takes one slot a thread)
+    fused += [(G, P, S, L, off) for G, S, L in cases.EDGE_SHAPES
+              for P in (3, 5) for off in (False, True)]
+    # which of them take four slots a thread on this card, as
+    # admit_submits_launch picks (S a multiple of 4, G * S / 4 at least the
+    # resident threads): the tile widths S / 4 they reach
+    props = torch.cuda.get_device_properties(dev)
+    resident = props.multi_processor_count \
+        * props.max_threads_per_multi_processor
+    tiles = {(min(S // 4, 32), S > 128) for G, S, L in cases.EDGE_SHAPES
+             if S % 4 == 0 and G * (S // 4) >= resident}
+    want = {(1, False), (2, False), (4, False), (32, True)}
+    if not want <= tiles:
+        raise AssertionError(f"on {resident} resident threads EDGE_SHAPES "
+                             f"take four slots a thread in tiles {tiles}, "
+                             f"not all of {want} (threads, several steps)")
+    say(f"kernel: on {resident} resident threads EDGE_SHAPES take four "
+        f"slots a thread in tiles of {sorted(tiles)} (threads, several "
+        "steps)")
+    for G, P, S, L, off in fused:
         quorum = P // 2 + 1
-        where = f"G={G} P={P} S={S} L={L}"
+        where = f"G={G} P={P} S={S} L={L}" + (", misaligned" if off else "")
         a_np = cases.admit_case(rng, G, P, S, L)
         c_np = cases.ack_case(rng, G, P, L)
         # the static path, then the member-masked one on random views
@@ -352,12 +393,16 @@ def phase_kernel(kernels, cases, dev) -> dict:
         for views, tag in ((None, ""), ("views", "_masked")):
             a = on_card(a_np, dev)
             c = on_card(c_np, dev)
-            c["l_log_term"] = widen_ring(c["l_log_term"])
+            ring = c.pop("l_log_term")
             if views:
                 a["view"] = torch.from_numpy(cases.member_views(
                     rng, a_np["lead"], P)).to(dev)
                 c["view"] = torch.from_numpy(cases.member_views(
                     rng, c_np["lead"], P)).to(dev)
+            if off:
+                a = {k: cases.misalign(v) for k, v in a.items()}
+                c = {k: cases.misalign(v) for k, v in c.items()}
+            c["l_log_term"] = widen_ring(ring, first=int(off))
             got = kernels.admit_submits_cuda(**a, quorum=quorum, L=L)
             want = kernels.admit_submits_plain(**a, quorum=quorum, L=L)
             torch.cuda.synchronize()
@@ -767,6 +812,7 @@ def phase_query_lane(bench, card: str, rounds: int, repeats: int) -> dict:
     """The map_read cell at G=10,000 × P=3 at both read levels: every
     served get reads the value the puts wrote."""
     out = {}
+    say_cut(bench, "map_read", rounds, repeats)
     for level in bench.READ_LEVELS:
         zero_counts(bench.KERNELS)
         r = bench.run_map_read(level, rounds=rounds, repeats=repeats)
@@ -789,6 +835,7 @@ def phase_query_lane(bench, card: str, rounds: int, repeats: int) -> dict:
 
 
 def phase_elections(bench, card: str, rounds: int, repeats: int) -> dict:
+    say_cut(bench, "election", rounds, repeats)
     zero_counts(bench.KERNELS)
     r = bench.run_election(rounds=rounds, repeats=repeats)
     if r["two_leaders_in_a_term"] or not r["value"]:
@@ -949,6 +996,13 @@ def bounds(nbytes: int, ops: int) -> dict:
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")
 
 
+def tally_bound(G: int, P: int) -> dict:
+    """Bound of one ``kth_largest`` call: reads [G,P] int32, writes [G]
+    int32; a k-th largest of P values compares each of them at least once,
+    P operations a group."""
+    return bounds(G * P * 4 + G * 4, G * P)
+
+
 def admit_bound(G: int, P: int, S: int, masked: bool = False) -> dict:
     """Bound of one ``admit_submits`` call. Reads: applied, lead,
     accept_ok, valid, l_last (and the leader lane's 4-byte view word when
@@ -1071,9 +1125,21 @@ def report_bench(name: str, result: dict, card: str) -> None:
     say(f"{name}: " + json.dumps(result))
 
 
+# bench cells whose step gives the static fused kernels the widths of the
+# engines behind the server and public-API paths: a server engine's
+# (G=10,000, S=4, L=64) and spi's (G=1,024, S=4, L=16), P=3
+ENGINE_CELLS = (
+    ("server_shape", dict(scenario="counter", groups=10_000, peers=3,
+                          log_slots=64, submit_slots=4)),
+    ("spi_shape", dict(scenario="counter", groups=1_024, peers=3,
+                       log_slots=16, submit_slots=4)))
+
+
 def phase_bench(bench, cons, kernels, dev, card: str) -> tuple[dict, dict]:
     zero_counts(bench.KERNELS)
-    result = bench.run_throughput()
+    say_cut(bench, "bench", COUNTER_ROUNDS, COUNTER_REPEATS)
+    result = bench.run_throughput(rounds=COUNTER_ROUNDS,
+                                  repeats=COUNTER_REPEATS)
     report_bench("bench", result, card)
 
     # kth_largest alone, at the shape of the step's tallies
@@ -1085,11 +1151,21 @@ def phase_bench(bench, cons, kernels, dev, card: str) -> tuple[dict, dict]:
         lambda: kernels.kth_largest_cuda(x, k),
         lambda: kernels.kth_largest_plain(x, k),
         lambda: torch.topk(x, k, dim=1).values[:, -1],
-        bounds(G * P * 4 + G * 4, 2 * G * P * P))}
+        tally_bound(G, P))}
     # the fused kernels, on the bench step's own inputs
     fns.update(fused_fns(bench, cons, kernels, dev))
     timing = time_fns(fns, result["launches_per_round"], "G=10000 P=3",
                       card)
+    # and on the steps of the server's and spi's engine widths
+    for key, cell in ENGINE_CELLS:
+        shaped = time_fns(
+            fused_fns(bench, cons, kernels, dev, **cell),
+            result["launches_per_round"],
+            "G={groups} P={peers} L={log_slots} S={submit_slots} "
+            "(a counter step at the {0} engine's width)".format(
+                key.split("_")[0], **cell), card)
+        for name, row in shaped.items():
+            timing[name][key] = row
     return result, timing
 
 
@@ -1104,10 +1180,7 @@ def phase_mixed_bench(bench, cons, ap, kernels, dev, card: str
                                   repeats=MIXED_REPEATS, **MIXED)
     launches = counts(bench.KERNELS)
     dt = time.perf_counter() - t0
-    if (MIXED_ROUNDS, MIXED_REPEATS) != (bench.ROUNDS, bench.REPEATS):
-        say(f"mixed bench: cut to {MIXED_ROUNDS} rounds x {MIXED_REPEATS} "
-            f"repetitions (the reference runs {bench.ROUNDS} x "
-            f"{bench.REPEATS}); G, P and L as the reference's")
+    say_cut(bench, "mixed bench", MIXED_ROUNDS, MIXED_REPEATS)
     report_bench("mixed bench", result, card)
     say(f"mixed bench: {dt:.1f}s in all, election and warm-up included")
 
@@ -1461,7 +1534,7 @@ def wide_fns(kernels, cases, dev, rng, G: int, P: int, S: int, L: int,
             lambda: kernels.kth_largest_cuda(x, quorum),
             lambda: kernels.kth_largest_plain(x, quorum),
             lambda: torch.topk(x, quorum, dim=1).values[:, -1],
-            bounds(G * P * 4 + G * 4, 2 * G * P * P))
+            tally_bound(G, P))
     return fns
 
 
@@ -1518,6 +1591,8 @@ WIDE_SHAPES = ((9, False, True), (16, False, True), (9, True, True),
 # every k from 1 to P's edges: the 16- and 32-lane tiles' edges, two lanes
 # a thread (64) and more than a thread keeps in registers (130)
 TALLY_CHECKS = (9, 16, 17, 32, 33, 64, 130)
+# of those, the P timed only on drawn rows (WIDE_SHAPES times the others)
+TALLY_TIMED = (17, 64, 130)
 
 
 def check_wide_tally(kernels, dev) -> dict:
@@ -1545,7 +1620,8 @@ def check_wide_tally(kernels, dev) -> dict:
 
 
 def phase_wide_kernels(RaftGroups, kernels, cases, ap, ks: dict, dev,
-                       card: str, G: int = 10_000) -> list[dict]:
+                       card: str, path_launches: dict,
+                       G: int = 10_000) -> list[dict]:
     """The runtime-P (P > 8, warp-tile) kernels: ``RaftGroups`` at 9 and
     16 peers, and at 9 with dynamic membership, serving on the card; each
     fused kernel equal to its plain version bit for bit on the arguments
@@ -1554,7 +1630,8 @@ def phase_wide_kernels(RaftGroups, kernels, cases, ap, ks: dict, dev,
     32 (static and masked) and 33 peers on the drawn inputs alone, timed
     on those at G = 10,000; ``kth_largest`` (off the path) on drawn
     rows, checked at ``TALLY_CHECKS``' P and timed at the static shapes'
-    P."""
+    P. ``path_launches``: each kernel's count on the main path's run (the
+    counter serve), read where no serve of this phase runs a P."""
     rng = np.random.default_rng(9)
     L = 64
     rows = []
@@ -1571,8 +1648,9 @@ def phase_wide_kernels(RaftGroups, kernels, cases, ap, ks: dict, dev,
                                      "form")
             S = seen["admit_submits"][0][3].shape[1]
             inputs = "the serve's step"
-        else:           # no path runs this P: launches 0
-            launched = dict.fromkeys(ks, 0)
+        else:           # no serve runs this P: the main path's tally count
+            launched = {n: path_launches["kth_largest"] if n == "kth_largest"
+                        else 0 for n in ks}
             fns = {n: f for n, f in drawn[0].items() if n != "kth_largest"}
             errs, S, inputs = {}, 16, "drawn inputs"
         for name in drawn[0]:
@@ -1614,6 +1692,26 @@ def phase_wide_kernels(RaftGroups, kernels, cases, ap, ks: dict, dev,
             f"bit for bit" + (f" on the serve's step (S={S}) and" if served
                               else "") + f" on drawn inputs at G={G} (S=16) "
             "and G=1001")
+    # the tally alone at the P that only check_wide_tally reached: timed
+    # beside its plain version and torch.topk on drawn rows, k = P // 2 + 1
+    for P in TALLY_TIMED:
+        k = P // 2 + 1
+        x = torch.from_numpy(edge_rows(rng, G, P)).to(dev)
+        timing = time_fns({"kth_largest": (
+            lambda: kernels.kth_largest_cuda(x, k),
+            lambda: kernels.kth_largest_plain(x, k),
+            lambda: torch.topk(x, k, dim=1).values[:, -1],
+            tally_bound(G, P))},
+            {"kth_largest": 1.0}, f"G={G} P={P} (drawn rows)", card)
+        rows.append({
+            "name": f"kth_largest_p{P}", "route": "cuda",
+            "source": "copycat_tpu_torch/csrc/kth_largest.cu",
+            "replaces": "copycat_tpu/ops/pallas_kernels.py:69",
+            "launches": path_launches["kth_largest"],
+            "max_abs_err": tally_errs[P],
+            "timed_on": "drawn rows",
+            **{k_: v for k_, v in timing["kth_largest"].items()
+               if k_ != "launches_per_bench_round"}})
     return rows
 
 
@@ -2760,7 +2858,7 @@ def main() -> int:
     phase_host_read_session(bench, card)
     lap("host_read and session")
     wide_rows = phase_wide_kernels(RaftGroups, kernels, cases, ap, ks, dev,
-                                   card)
+                                   card, launches["counter_serve"])
     lap("wide kernels")
     phase_checkpoint(RaftGroups, bench, ap, card)
     lap("checkpoint")

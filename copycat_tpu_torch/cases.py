@@ -18,7 +18,10 @@ them whatever its size (G >= 5):
   a candidate below the ring's live window; ``leader_stale`` from a
   higher-term ack; duplicate ``matchIndex`` values.
 
-The random rows after them mix the same conditions. ``member_views``
+The random rows after them mix the same conditions; a case of fewer than
+five groups holds random rows only. ``EDGE_SHAPES`` lists the shapes at
+the kernels' boundaries, and ``misalign`` gives a tensor's contents at a
+storage offset that breaks 16-byte alignment. ``member_views``
 gives the dynamic-membership form of either phase its ``view``: the
 leader lane's word is one member in group 0, every lane in group 1 and
 every lane but the leader in group 2; in the random rows it is any
@@ -30,6 +33,41 @@ from __future__ import annotations
 import numpy as np
 
 
+#: (G, S, L) at the fused kernels' boundaries: groups that cut a tile or a
+#: block short (1, 31, 10,001 and 100,003 groups); submit rows of one slot
+#: a thread (S = 1 and 17, not a multiple of 4; S = 4 and 16 at 1,001
+#: groups, too few to fill the card at four a thread); rows wider than a
+#: warp's step (256 slots at 1,001 groups: eight steps of 32); a ring of
+#: one slot (L = 1). Phase 1 takes four slots a thread where S is a
+#: multiple of 4 and G * S / 4 reaches the card's resident threads
+#: (270,336 on an H100: 132 SMs of 2,048), in a tile of S / 4 threads up to
+#: 32; these shapes reach each such tile: one thread a group (300,007 x
+#: 4), two (150,001 x 8), four (100,003 x 16), and 32 taking three steps
+#: of 128 slots, the last one short (10,001 x 260).
+EDGE_SHAPES = ((1, 16, 16), (31, 16, 16), (10_001, 16, 16),
+               (100_003, 16, 16), (1_001, 1, 16), (1_001, 4, 16),
+               (1_001, 17, 16), (1_001, 256, 16), (1_001, 16, 1),
+               (300_007, 4, 16), (150_001, 8, 16), (10_001, 260, 16))
+_EDGE_ROWS = 5      # the fixed edge rows at the front of a case
+
+
+def misalign(t):
+    """``t``'s contents as a contiguous tensor one element past the start
+    of its storage (a torch tensor in, one out, on ``t``'s device): a byte
+    tensor's rows then lose their 4- and 16-byte alignment, an int32
+    tensor's its 16-byte alignment."""
+    buf = t.new_empty(t.numel() + 1)
+    buf[1:] = t.reshape(-1)
+    return buf[1:].view(t.shape)
+
+
+def _random_rows(make, G: int) -> dict:
+    """A case of G < 5 groups: the random rows of a case drawn with the
+    edge rows before them."""
+    case = make(G + _EDGE_ROWS)
+    return {k: v[_EDGE_ROWS:] for k, v in case.items()}
+
+
 def _kth(x: np.ndarray, k: int) -> np.ndarray:
     return np.sort(x, axis=1)[:, ::-1][:, k - 1]
 
@@ -37,6 +75,8 @@ def _kth(x: np.ndarray, k: int) -> np.ndarray:
 def admit_case(rng: np.random.Generator, G: int, P: int, S: int,
                L: int) -> dict:
     """Inputs of phase 1 for G groups × P lanes, S submit slots, ring L."""
+    if G < _EDGE_ROWS:
+        return _random_rows(lambda g: admit_case(rng, g, P, S, L), G)
     quorum = P // 2 + 1
     applied = rng.integers(0, 4 * L, (G, P)).astype(np.int32)
     dup = rng.random(G) < 0.2
@@ -61,6 +101,8 @@ def ack_case(rng: np.random.Generator, G: int, P: int, L: int,
              E: int = 16) -> dict:
     """Inputs of phase 3 for G groups × P lanes and a ring of L slots, with
     an append window of E entries."""
+    if G < _EDGE_ROWS:
+        return _random_rows(lambda g: ack_case(rng, g, P, L, E), G)
     gp = (G, P)
     l_last = rng.integers(0, 4 * L, G).astype(np.int32)
     lead = rng.integers(-1, P, G).astype(np.int32)
@@ -127,8 +169,9 @@ def member_views(rng: np.random.Generator, lead: np.ndarray,
     word = views[rows, ld]
     word = np.where(outside, word & ~(1 << ld), word)
     word = np.where(word == 0, 1 << ((ld + 1) % P), word)   # never empty
-    word[0] = 1 << ((ld[0] + 1) % P) if P > 1 else 1        # one member
-    word[1] = full                                          # every lane
-    word[2] = full & ~(1 << ld[2]) if P > 1 else full       # not the leader
+    if G >= _EDGE_ROWS:     # the fixed rows (a smaller case is random)
+        word[0] = 1 << ((ld[0] + 1) % P) if P > 1 else 1    # one member
+        word[1] = full                                      # every lane
+        word[2] = full & ~(1 << ld[2]) if P > 1 else full   # not the leader
     views[rows, ld] = word
     return views.astype(np.int32)

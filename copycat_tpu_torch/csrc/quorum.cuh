@@ -31,11 +31,11 @@ __device__ __forceinline__ int32_t kth_select(const int32_t (&v)[P], int k) {
   return res;
 }
 
-// ---- warp tiles (the P > 8 path of every quorum kernel) --------------------
+// ---- warp tiles (phase 3 up to 8 peers, and past 8 every quorum kernel) ---
 //
-// A tile is W (16 or 32) consecutive threads of a warp that together own one
-// group, thread `lane` of the tile owning peer `lane` (and, past 32 peers,
-// lane + 32, lane + 64, ...). With W = 16 a warp holds two tiles. Every
+// A tile is W (4, 8, 16 or 32) consecutive threads of a warp that together
+// own one group, thread `lane` of the tile owning peer `lane` (and, past 32
+// peers, lane + 32, lane + 64, ...). A warp holds 32 / W tiles. Every
 // thread of the warp calls these helpers together, with the same trip
 // counts: a tile past the last group runs on clamped inputs and stores
 // nothing, so the whole warp stays converged for the shuffles.

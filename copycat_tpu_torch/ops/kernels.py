@@ -28,10 +28,12 @@ Each of the last three dispatches on the device of its tensors: a CPU
 tensor takes the plain version (``*_plain``), a CUDA tensor launches the
 hand-written kernel (``*_cuda``) or raises; any other device raises. Each
 dispatcher's ``launches`` counts its kernel launches. The kernels take any
-P: P <= 8 runs an unrolled instantiation with the lanes in registers; a
-wider group runs on a warp tile, a thread a peer, its tally by warp
-shuffles; a member view takes at most 32 lanes, as many as its int32
-bitmask names.
+P: up to 8 peers the tallies are unrolled instantiations ranked in
+registers (phase 1 a tile of threads a group, a slot or four a thread;
+phase 3 a tile of 4 or 8 threads a group, or a thread a group on calls
+too wide for the tiles to fit the card at once); a wider group runs on a
+warp tile, a thread a peer, its tally by warp shuffles; a member view
+takes at most 32 lanes, as many as its int32 bitmask names.
 
 The kernel libraries are built with ``nvcc`` at first use, one per
 ``csrc/*.cu`` source (all started at once by :func:`load_libraries`), into
@@ -64,7 +66,6 @@ SOURCES = (KTH_SOURCE, PHASE_SOURCE)
 BUILD_DIR = _PKG_DIR / "_build"
 NVCC_DEFAULT = pathlib.Path("/usr/local/cuda/bin/nvcc")
 MAX_MEMBER_LANES = 32    # a membership view is an int32 bitmask
-MAX_SUBMIT_SLOTS = 256   # admit_submits stages its rows in shared memory
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -401,6 +402,31 @@ def _check(what: str, dev: torch.device, args) -> None:
                 + ("" if t.is_contiguous() else ", not contiguous"))
 
 
+# ack_commit_cuda's inputs in the C entry point's order: the [G, P] lanes,
+# then the [G] values, each with its dtype
+_ACK_LANES = (("recv", torch.bool), ("reject_term", torch.bool),
+              ("del_back", torch.bool), ("match", torch.bool),
+              ("entries_sent", torch.bool), ("ok_term", torch.bool),
+              ("upto", torch.int32), ("prev", torch.int32),
+              ("term1", torch.int32), ("last_index", torch.int32),
+              ("l_match", torch.int32), ("l_next", torch.int32))
+_ACK_GROUPS = (("lead", torch.int32), ("active", torch.bool),
+               ("l_term", torch.int32), ("l_last", torch.int32),
+               ("l_commit", torch.int32))
+
+
+def _check_many(what: str, ref: torch.Tensor, tensors, specs,
+                shape) -> None:
+    """``_check`` of ``tensors``, one ``(name, dtype)`` of ``specs`` each,
+    all of one shape, on ``ref``'s card: the same tests, without a tuple
+    or a device object a tensor."""
+    index = ref.get_device()
+    for t, (name, dtype) in zip(tensors, specs):
+        if t.dtype is not dtype or t.shape != shape \
+                or not t.is_contiguous() or t.get_device() != index:
+            _check(what, ref.device, ((name, t, dtype, shape),))
+
+
 def _check_sizes(what: str, P: int, quorum: int, masked: bool = False
                  ) -> None:
     """Raise where the reference itself cannot run: no lanes, a quorum
@@ -459,9 +485,8 @@ def admit_submits_cuda(applied: torch.Tensor, lead: torch.Tensor,
                          f"{tuple(valid.shape)}")
     (G, P), S = applied.shape, valid.shape[1]
     _check_sizes("admit_submits_cuda", P, quorum, view is not None)
-    if not 1 <= S <= MAX_SUBMIT_SLOTS:
-        raise ValueError(f"admit_submits_cuda takes 1..{MAX_SUBMIT_SLOTS} "
-                         f"submit slots, got {S}")
+    if S < 1:
+        raise ValueError(f"admit_submits_cuda: {S} submit slots < 1")
     if L < 1:
         raise ValueError(f"admit_submits_cuda: ring size {L} < 1")
     dev, i32, b8 = applied.device, torch.int32, torch.bool
@@ -500,7 +525,7 @@ def ack_commit_cuda(*, recv: torch.Tensor, reject_term: torch.Tensor,
     on the current stream. Every tensor is contiguous on one card, except
     ``l_log_term [G, L]``, whose rows need only be dense: the step's ring
     is a column slice of a wider tensor, taken as it is."""
-    if recv.device.type != "cuda":
+    if not recv.is_cuda:
         raise ValueError(
             f"ack_commit_cuda needs CUDA tensors, got {recv.device}")
     if recv.dim() != 2 or l_log_term.dim() != 2:
@@ -511,40 +536,40 @@ def ack_commit_cuda(*, recv: torch.Tensor, reject_term: torch.Tensor,
     _check_sizes("ack_commit_cuda", P, quorum, view is not None)
     if L < 1:
         raise ValueError(f"ack_commit_cuda: ring size {L} < 1")
-    dev, i32, b8 = recv.device, torch.int32, torch.bool
-    ins = (("recv", recv, b8, (G, P)),
-           ("reject_term", reject_term, b8, (G, P)),
-           ("del_back", del_back, b8, (G, P)), ("match", match, b8, (G, P)),
-           ("entries_sent", entries_sent, b8, (G, P)),
-           ("ok_term", ok_term, b8, (G, P)), ("upto", upto, i32, (G, P)),
-           ("prev", prev, i32, (G, P)), ("term1", term1, i32, (G, P)),
-           ("last_index", last_index, i32, (G, P)),
-           ("l_match", l_match, i32, (G, P)),
-           ("l_next", l_next, i32, (G, P)), ("lead", lead, i32, (G,)),
-           ("active", active, b8, (G,)), ("l_term", l_term, i32, (G,)),
-           ("l_last", l_last, i32, (G,)), ("l_commit", l_commit, i32, (G,)))
-    _check("ack_commit_cuda", dev, ins)
+    lanes = (recv, reject_term, del_back, match, entries_sent, ok_term,
+             upto, prev, term1, last_index, l_match, l_next)
+    groups = (lead, active, l_term, l_last, l_commit)
+    index = recv.get_device()
+    _check_many("ack_commit_cuda", recv, lanes, _ACK_LANES, recv.shape)
+    _check_many("ack_commit_cuda", recv, groups, _ACK_GROUPS, (G,))
     if view is not None:
-        _check("ack_commit_cuda", dev, (("view", view, i32, (G, P)),))
-    if l_log_term.device != recv.device or l_log_term.dtype != i32 \
-            or l_log_term.shape[0] != G or l_log_term.stride(1) != 1:
+        _check("ack_commit_cuda", recv.device,
+               (("view", view, torch.int32, (G, P)),))
+    if l_log_term.dtype is not torch.int32 or l_log_term.shape[0] != G \
+            or l_log_term.stride(1) != 1 \
+            or l_log_term.get_device() != index:
         raise ValueError(
             "ack_commit_cuda: l_log_term must be int32 [G, L] on "
-            f"{dev} with dense rows; got {l_log_term.dtype} "
+            f"{recv.device} with dense rows; got {l_log_term.dtype} "
             f"{tuple(l_log_term.shape)} strides {l_log_term.stride()} on "
             f"{l_log_term.device}")
     launch = _entry(PHASE_SOURCE, "ack_commit_launch")
-    l_match_out, l_next_out = torch.empty((2, G, P), dtype=i32,
-                                          device=dev).unbind(0)
-    stale, lease = torch.empty((2, G), dtype=b8, device=dev).unbind(0)
-    max_ack_term, l_commit_out = torch.empty((2, G), dtype=i32,
-                                             device=dev).unbind(0)
-    out = AckCommit(l_match_out, l_next_out, stale, lease, max_ack_term,
-                    l_commit_out)
+    # one buffer a dtype: matchIndex and nextIndex [G, P], then the highest
+    # ack term and the commit index [G]; leader_stale and lease [G]
+    ints = torch.empty(2 * G * P + 2 * G, dtype=torch.int32,
+                       device=recv.device)
+    bools = torch.empty(2 * G, dtype=torch.bool, device=recv.device)
+    l_match_out, l_next_out, max_ack_term, l_commit_out = \
+        torch.split_with_sizes(ints, (G * P, G * P, G, G))
+    stale, lease = torch.split_with_sizes(bools, (G, G))
+    i, b = ints.data_ptr(), bools.data_ptr()
     _launched("ack_commit", launch(
-        *(t.data_ptr() for _, t, _, _ in ins), l_log_term.data_ptr(),
-        l_log_term.stride(0), _ptr(view), *(o.data_ptr() for o in out), G,
-        P, quorum, L, _stream(recv)))
+        *[t.data_ptr() for t in lanes], *[t.data_ptr() for t in groups],
+        l_log_term.data_ptr(), l_log_term.stride(0), _ptr(view),
+        i, i + 4 * G * P, b, b + G, i + 8 * G * P, i + 8 * G * P + 4 * G,
+        G, P, quorum, L, _stream(recv)))
+    out = AckCommit(l_match_out.view(G, P), l_next_out.view(G, P), stale,
+                    lease, max_ack_term, l_commit_out)
     ack_commit.launches += 1
     return out
 

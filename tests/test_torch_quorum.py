@@ -21,6 +21,11 @@ and the edge cases the inputs carry:
   lane's members with the per-group quorum ``l_quorum`` (lines 605-611,
   643-644 and 826-829).
 
+Both phases also hold, static at P = 3 and masked at P = 5, on
+``cases.EDGE_SHAPES``: the groups, submit rows and ring sizes at the
+kernels' boundaries (ragged last tiles and blocks, one slot a thread or
+four, rows wider than a warp's step, a ring of one slot).
+
 The reference's expressions run once, in a worker process started with
 the session's first port file (``torch_reference.LONG_RUNS``), and their
 answers come back to the cases.
@@ -60,11 +65,11 @@ def ref():
 @lru_cache(maxsize=None)
 def _compiled(expr):
     """A reference expression (``_ref_admit``, ``_ref_ack``) compiled as
-    one program per input shape, the modules and the quorum static: the
-    same jnp ops as dispatching them one by one, without a small compile
-    for each."""
+    one program per input shape, the modules, the quorum and the ring size
+    static: the same jnp ops as dispatching them one by one, without a
+    small compile for each."""
     import jax
-    return jax.jit(expr, static_argnums=(0, 2))
+    return jax.jit(expr, static_argnums=(0, 2), static_argnames=("ring",))
 
 
 def _torch(case: dict) -> dict:
@@ -85,9 +90,9 @@ def _ref_members(ref, view, lead):
     return l_member, jcons._peer_view(view_quorum, lead)
 
 
-def _ref_admit(ref, c: dict, quorum: int, view=None):
+def _ref_admit(ref, c: dict, quorum: int, view=None, *, ring: int = L):
     """Reference 642-647, 654 and 708-713 (the static tally, or with
-    ``view`` the masked one), on jnp."""
+    ``view`` the masked one), on jnp, with a ring of ``ring`` slots."""
     import jax.numpy as jnp
     jcons, jpk = ref
     applied, lead = jnp.asarray(c["applied"]), jnp.asarray(c["lead"])
@@ -99,20 +104,21 @@ def _ref_admit(ref, c: dict, quorum: int, view=None):
     else:
         q_applied = jpk.kth_largest_masked(applied,
                                            *_ref_members(ref, view, lead))
-    allowed_last = jnp.minimum(l_applied, q_applied) + L
+    allowed_last = jnp.minimum(l_applied, q_applied) + ring
     valid = jnp.asarray(c["valid"]) & jnp.asarray(c["accept_ok"])[:, None]
     pos = l_last[:, None] + jnp.cumsum(valid.astype(jnp.int32), axis=1)
     accepted = valid & (pos <= allowed_last[:, None])
-    slot_s = jnp.where(accepted, (pos - 1) % L, L)
+    slot_s = jnp.where(accepted, (pos - 1) % ring, ring)
     return dict(accepted=accepted, assigned=jnp.where(accepted, pos, 0),
                 slot=slot_s,
                 l_last=l_last + accepted.sum(axis=1, dtype=jnp.int32))
 
 
-def _ref_ack(ref, c: dict, quorum: int, view=None):
+def _ref_ack(ref, c: dict, quorum: int, view=None, *, ring: int = L):
     """Reference 807-838 (the static path, or with ``view`` the masked
     one), on jnp; also returns the commit candidate, so the test can see
-    which edge cases the inputs hit."""
+    which edge cases the inputs hit. ``ring`` is unused: the ring's size
+    is ``l_log_term``'s."""
     import jax.numpy as jnp
     jcons, jpk = ref
     j = {k: jnp.asarray(v) for k, v in c.items()}
@@ -178,6 +184,20 @@ def _masked_cases(P):
     return a, a_view, k, k_view
 
 
+def _edge_cases(G: int, S: int, L_: int) -> dict:
+    """Phase inputs at an edge shape: static at P = 3, masked at P = 5."""
+    rng = np.random.default_rng(G + 7 * S + 31 * L_)
+    out = {}
+    for P, masked in ((3, False), (5, True)):
+        a = cases.admit_case(rng, G, P, S, L_)
+        k = cases.ack_case(rng, G, P, L_)
+        if masked:
+            a["view"] = cases.member_views(rng, a["lead"], P)
+            k["view"] = cases.member_views(rng, k["lead"], P)
+        out[P] = a, k
+    return out
+
+
 def _reference_answers() -> dict:
     """Every case's reference answer, as numpy."""
     import jax
@@ -194,6 +214,15 @@ def _reference_answers() -> dict:
         a, a_view, k, k_view = _masked_cases(P)
         out["masked", P] = (_compiled(_ref_admit)(ref, a, 0, a_view),
                             _compiled(_ref_ack)(ref, k, 0, k_view)[0])
+    for shape in cases.EDGE_SHAPES:
+        for P, (a, k) in _edge_cases(*shape).items():
+            a, k = dict(a), dict(k)
+            a_view, k_view = a.pop("view", None), k.pop("view", None)
+            out["edge", shape, P] = (
+                _compiled(_ref_admit)(ref, a, P // 2 + 1, a_view,
+                                      ring=shape[2]),
+                _compiled(_ref_ack)(ref, k, P // 2 + 1, k_view,
+                                    ring=shape[2])[0])
     return jax.tree.map(np.asarray, out)
 
 
@@ -263,6 +292,35 @@ def test_masked_phases_match_reference(ref, P):
     assert (outside & advanced).any()
 
 
+@pytest.mark.parametrize("shape", cases.EDGE_SHAPES,
+                         ids=lambda s: "G{}-S{}-L{}".format(*s))
+def test_admit_submits_edges_match_reference(ref, shape):
+    """Phase 1 at the kernels' boundaries, static (P = 3) and masked
+    (P = 5): ragged tiles and blocks, one slot a thread or four, rows
+    wider than a warp's step, a ring of one slot."""
+    G_, S_, L_ = shape
+    for P, (a, _) in _edge_cases(*shape).items():
+        want = _answers(ref)["edge", shape, P][0]
+        got = kernels.admit_submits(**_torch(a), quorum=P // 2 + 1, L=L_)
+        _assert_equal(got, want, int64=("slot",))
+        accepted = np.asarray(want["accepted"])
+        assert accepted.shape == (G_, S_)
+        if G_ > 1 and L_ > 1:
+            assert accepted.any()
+
+
+@pytest.mark.parametrize("shape", cases.EDGE_SHAPES,
+                         ids=lambda s: "G{}-S{}-L{}".format(*s))
+def test_ack_commit_edges_match_reference(ref, shape):
+    """Phase 3 at the same shapes, static (P = 3) and masked (P = 5)."""
+    G_, _, L_ = shape
+    for P, (_, k) in _edge_cases(*shape).items():
+        want = _answers(ref)["edge", shape, P][1]
+        got = kernels.ack_commit(**_torch(k), quorum=P // 2 + 1)
+        _assert_equal(got, want)
+        assert got.l_commit.shape == (G_,)
+
+
 def test_fused_phases_take_the_plain_versions_only_on_cpu():
     a = _torch(cases.admit_case(np.random.default_rng(0), 8, 3, 4, 8))
     k = _torch(cases.ack_case(np.random.default_rng(0), 8, 3, 8))
@@ -281,6 +339,29 @@ def test_fused_phases_take_the_plain_versions_only_on_cpu():
         kernels.admit_submits_cuda(**a, quorum=2, L=8)
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         kernels.ack_commit_cuda(**k, quorum=2)
+
+
+def test_ack_commit_checks_raise_on_what_the_kernel_does_not_take():
+    """``ack_commit_cuda``'s one-pass checks (``_check_many``) take the
+    phase's [G, P] lanes and [G] values as the kernel needs them, and
+    raise, naming the input, on a wrong dtype, shape or layout."""
+    k = _torch(cases.ack_case(np.random.default_rng(0), 8, 3, 8))
+    for specs, shape in ((kernels._ACK_LANES, (8, 3)),
+                         (kernels._ACK_GROUPS, (8,))):
+        good = [k[name] for name, _ in specs]
+        kernels._check_many("ack_commit_cuda", k["recv"], good, specs,
+                            shape)
+        for i, (name, dtype) in enumerate(specs):
+            t = good[i]
+            wrong_dtype = t.to(torch.int64)
+            wrong_shape = t[:4]
+            strided = torch.stack([t, t], -1)[..., 0]
+            assert strided.shape == t.shape and not strided.is_contiguous()
+            for bad in (wrong_dtype, wrong_shape, strided):
+                tensors = good[:i] + [bad] + good[i + 1:]
+                with pytest.raises(ValueError, match=name):
+                    kernels._check_many("ack_commit_cuda", k["recv"],
+                                        tensors, specs, shape)
 
 
 @pytest.mark.parametrize("P,masked", [(9, False), (16, False), (64, False),
@@ -340,7 +421,9 @@ LONG_RUNS.update({f"{os.path.basename(__file__)}::{test}": [
     ("quorum", _reference_answers, ())] for test in (
         "test_admit_submits_matches_reference",
         "test_ack_commit_matches_reference",
-        "test_masked_phases_match_reference")})
+        "test_masked_phases_match_reference",
+        "test_admit_submits_edges_match_reference",
+        "test_ack_commit_edges_match_reference")})
 
 
 # ---------------------------------------------------------------------------
@@ -354,11 +437,12 @@ def cuda_device():
     return torch.device("cuda")
 
 
-# (P, G) on the card: the unrolled kernels and P = 9, 16 at G = 10,001; the
-# warp tiles' edges (16 and 32 lanes a tile, more than 32 lanes a thread)
-# at G = 1,001, a partial last tile and block
+# (P, G) on the card: P = 3, 5, 7, 9 and 16 at G = 10,001; every other
+# instantiation of the P <= 8 path, and the warp tiles' edges (16 and 32
+# lanes a tile, more than 32 lanes a thread), at G = 1,001, a partial last
+# tile and block
 CUDA_SHAPES = ([(P, 10_001) for P in (3, 5, 7, 9, 16)]
-               + [(P, 1_001) for P in (9, 16, 17, 32, 33)])
+               + [(P, 1_001) for P in (1, 2, 4, 6, 8, 9, 16, 17, 32, 33)])
 
 
 @pytest.mark.cuda
@@ -418,18 +502,37 @@ def test_wide_kth_largest_cuda_matches_plain(cuda_device, P, groups):
         assert got.dtype == want.dtype and torch.equal(got, want), k
 
 
-def _held_to_plain(cuda_device, a: dict, k: dict, P: int) -> None:
+def _ring_slice(ring: torch.Tensor, first: int = 0) -> torch.Tensor:
+    """The ring as the step hands it over: columns ``first`` .. ``first +
+    L - 1`` of a [G, L + 1] tensor, rows L + 1 elements apart."""
+    G_, L_ = ring.shape
+    wide = torch.zeros((G_, L_ + 1), dtype=ring.dtype, device=ring.device)
+    wide[:, first:first + L_] = ring
+    return wide[:, first:first + L_]
+
+
+def _held_to_plain(cuda_device, a: dict, k: dict, P: int, L_: int = 64,
+                   misaligned: bool = False) -> None:
     """Both fused kernels on the phases' inputs ``a`` and ``k`` equal their
-    plain versions bit for bit, one launch each."""
+    plain versions bit for bit, one launch each. The ring is a column slice
+    of a wider tensor; ``misaligned`` puts every input one element past
+    the start of its storage (``cases.misalign``) and the ring's first
+    column at 1."""
+    place = cases.misalign if misaligned else (lambda t: t)
     for fn, plain, case, kw in (
             (kernels.admit_submits, kernels.admit_submits_plain, a,
-             dict(quorum=P // 2 + 1, L=64)),
+             dict(quorum=P // 2 + 1, L=L_)),
             (kernels.ack_commit, kernels.ack_commit_plain, k,
              dict(quorum=P // 2 + 1))):
         c = _torch(case)
         want = plain(**c, **kw)
         before = fn.launches
-        got = fn(**{n: t.to(cuda_device) for n, t in c.items()}, **kw)
+        on_card = {n: place(t.to(cuda_device)) for n, t in c.items()
+                   if n != "l_log_term"}
+        if "l_log_term" in c:
+            on_card["l_log_term"] = _ring_slice(
+                c["l_log_term"].to(cuda_device), int(misaligned))
+        got = fn(**on_card, **kw)
         assert fn.launches == before + 1
         for name, w in want._asdict().items():
             g = getattr(got, name).cpu()
@@ -470,3 +573,25 @@ def test_wide_kernels_cuda_on_ties_and_int_min(cuda_device, masked):
         if masked:
             case["view"] = cases.member_views(rng, case["lead"], P)
     _held_to_plain(cuda_device, a, k, P)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", cases.EDGE_SHAPES,
+                         ids=lambda s: "G{}-S{}-L{}".format(*s))
+def test_edge_shapes_cuda_match_plain(cuda_device, shape):
+    """Both fused kernels, static (P = 3) and masked (P = 5), at the
+    boundaries of their tiles, blocks, slot steps and ring: equal to their
+    plain versions bit for bit, the ring rows L + 1 elements apart."""
+    for P, (a, k) in _edge_cases(*shape).items():
+        _held_to_plain(cuda_device, a, k, P, shape[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", cases.EDGE_SHAPES,
+                         ids=lambda s: "G{}-S{}-L{}".format(*s))
+def test_misaligned_inputs_cuda_match_plain(cuda_device, shape):
+    """Every input one element past the start of its storage (``valid``'s
+    rows off their 4- and 16-byte alignment, so phase 1 takes one slot a
+    thread) and the ring a column slice from column 1: the same bits."""
+    for P, (a, k) in _edge_cases(*shape).items():
+        _held_to_plain(cuda_device, a, k, P, shape[2], misaligned=True)
