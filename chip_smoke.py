@@ -195,6 +195,16 @@ Phases, each of which raises (and so exits non-zero) on failure:
     committed ops/s, the mean ingress queue, proxy retries and acked /
     in-doubt / lost writes per width (host numbers, taken on the card's
     machine); no acknowledged write lost, both corpses restarted.
+26. host_scenarios — the bench's ``fanout``, ``cluster``, ``sharded``
+    and ``recovery`` in this process at the reference's default widths
+    (readers 8, 32 and 128 with edge reads on; 3 members, 4 clients, 2 ms
+    a leg; 4 groups, 12 clients, 1,024 zipfian keys, 100 ms a leg; 4
+    clients on disk, a snapshot every 512 entries), one timed burst where
+    the reference runs 5 (printed): the trace proof and warm reads served
+    from the replicas, every key read back once-applied, the joiner at
+    the leader's commit index with no failed install; no kernel launched;
+    then the port's gate over the four artifacts: recorded into a golden,
+    passed against it, and a copy at half the values refused (exit 1).
 
 The profile windows' summaries read the window's Chrome trace back
 through ``copycat_tpu_torch/utils/profiling.py``. Each phase prints its
@@ -2763,6 +2773,241 @@ def phase_deploy(card: str) -> dict:
     say("deploy: " + json.dumps(result))
     return dict(result=result, wall_s=wall)
 
+
+SCENARIO_DIR = pathlib.Path(__file__).resolve().parent / "_smoke_scenarios"
+# The bench's host-plane scenarios at the reference's default widths
+# (every knob but the cut one at its default, which is the reference's),
+# cut in depth so that the phase stays near 45 s (PERF.md, Findings): one
+# timed burst where the reference runs 5; fanout and recovery as the
+# reference's (fanout's 3 bursts: its last is the settled warm burst).
+HOST_SCENARIOS = (
+    ("fanout", {"COPYCAT_EDGE_READS": "1"}),
+    ("cluster", {"COPYCAT_BENCH_CLUSTER_BURSTS": "1"}),
+    ("sharded", {"COPYCAT_BENCH_SHARDED_BURSTS": "1"}),
+    ("recovery", {}),
+)
+# at most this share of the last fanout burst's reads may reach the
+# server: the replica's read-your-writes gate sends a read back to the
+# server while a writer's delta is in flight, in the reference as in the
+# port, so a few do (PERF.md, Findings)
+FANOUT_WARM_SERVER_SHARE = 0.05
+
+
+@contextlib.contextmanager
+def env_set(values: dict):
+    """``os.environ`` with ``values`` set, restored after."""
+    import os
+
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def run_host_scenario(bench, name: str) -> tuple[dict, dict]:
+    """``bench.run_<name>`` with a hook that reads back what the scenario
+    wrote: every key of ``cluster`` and ``sharded`` through the public API
+    (256 reads in flight), ``fanout``'s counters and server reads,
+    ``recovery``'s joiner and leader in each pass."""
+    from copycat_tpu_torch.testing.counter_machine import ClusterGet
+    from copycat_tpu_torch.utils import knobs
+
+    seen: dict = {"passes": []}
+
+    async def read_back(clients, keys) -> dict:
+        got = {}
+        for i in range(0, len(keys), 256):
+            part = keys[i:i + 256]
+            got.update(zip(part, await asyncio.gather(*(
+                clients[j % len(clients)].submit(ClusterGet(key=k))
+                for j, k in enumerate(part)))))
+        return got
+
+    async def check(run):
+        if name == "fanout":
+            seen.update(values=[await c.get() for c in run.writer_ctrs[0]],
+                        writes=run.writes, server_reads=run.server_reads)
+        elif name == "recovery":
+            seen["passes"].append(dict(
+                commit=run.leader.commit_index,
+                applied=run.joiner.last_applied,
+                joined=dict(run.joiner.state_machine.data),
+                led=dict(run.leader.state_machine.data),
+                per_client=run.per_client))
+        else:
+            if name == "cluster":
+                total = (knobs.get_int("COPYCAT_BENCH_CLUSTER_OPS")
+                         * knobs.get_int("COPYCAT_BENCH_CLUSTER_BURSTS"))
+                expected = {f"k{i}": total for i in range(len(run.clients))}
+            else:
+                expected = dict(run.expected)
+            seen.update(expected=expected, values=await read_back(
+                run.clients, sorted(expected)))
+
+    bench.METRICS_SNAPSHOTS.clear()
+    bench.SERIES_WINDOWS.clear()
+    return getattr(bench, f"run_{name}")(check=check), seen
+
+
+def check_host_scenario(name: str, result: dict, metrics: dict,
+                        seen: dict) -> str:
+    """Fail unless a host scenario's run holds its gate: for ``fanout``
+    the trace proof, the edge tier's serves, warm bursts served from the
+    replicas and every write counted once; exactly once for ``cluster``
+    and ``sharded``; for ``recovery`` the joiner at the leader's commit
+    index in both passes with no failed install. Returns what was
+    checked."""
+    from copycat_tpu_torch.utils import knobs
+
+    if name == "fanout":
+        tr = result["trace"]
+        if not (tr and tr["client_only"]
+                and tr["spans"] == ["client.edge_serve"]
+                and tr["members"] == ["client"]):
+            raise AssertionError(f"fanout: no cache-served trace proof: {tr}")
+        agg = metrics["edge_clients"]
+        if not (agg.get("edge.local_serves") and agg.get("edge.seeds")
+                and agg.get("edge.deltas_in")):
+            raise AssertionError(f"fanout: the edge tier served nothing: "
+                                 f"{agg}")
+        per_reader = knobs.get_int("COPYCAT_BENCH_FANOUT_READS")
+        for count, per_burst in seen["server_reads"].items():
+            if per_burst[-1] > FANOUT_WARM_SERVER_SHARE * count * per_reader:
+                raise AssertionError(
+                    f"fanout: {per_burst[-1]} of the warm burst's "
+                    f"{count * per_reader} reads at {count} readers reached "
+                    "the server")
+        if sum(seen["values"]) != seen["writes"]:
+            raise AssertionError(f"fanout: counters {sum(seen['values'])} "
+                                 f"!= {seen['writes']} committed writes")
+        return (f"trace proof {tr['spans']} {tr['members']}; server reads a "
+                f"burst by reader count {seen['server_reads']}"
+                f"; {seen['writes']} committed writes, each counted once")
+    if name in ("cluster", "sharded"):
+        if seen["values"] != seen["expected"]:
+            wrong = {k: (seen["values"].get(k), v)
+                     for k, v in seen["expected"].items()
+                     if seen["values"].get(k) != v}
+            raise AssertionError(f"{name}: read back != written: {wrong}")
+        return (f"all {len(seen['values'])} keys read back, "
+                f"{sum(seen['values'].values())} writes, each applied once")
+    passes = seen["passes"]
+    for p in passes:
+        if (p["applied"] < p["commit"] or p["joined"] != p["led"]
+                or set(p["led"].values()) != {p["per_client"]}):
+            raise AssertionError(f"recovery: the joiner missed the leader: "
+                                 f"{p}")
+    fam = result["snap"]
+    if len(passes) != 2 or fam["snap.install_failures"] \
+            or result["installs_sent"] < 1:
+        raise AssertionError(f"recovery: install failed: {fam}")
+    return (f"joiner at the leader's commit index "
+            f"{[p['commit'] for p in passes]} in both passes with its state, "
+            f"{result['installs_sent']} install(s), 0 failed")
+
+
+def phase_host_scenarios(ks: dict, card: str) -> dict:
+    """The bench's host-plane scenarios (``fanout``, ``cluster``,
+    ``sharded``, ``recovery``) at the reference's default widths and cut
+    depth (``HOST_SCENARIOS``), each checked by
+    :func:`check_host_scenario`; they launch no kernel (the counts read 0
+    after). Then the port's gate over their four ``--metrics-json``
+    artifacts: recorded into a golden with ``--update-golden``, gated
+    again (every line ``ok``), and a copy with every value halved must
+    exit 1. Temp directories (the recovery logs, artifacts, golden) live
+    under ``SCENARIO_DIR``, deleted after. Host numbers, taken on the
+    card's machine."""
+    import io
+    import os
+    import shutil
+    import tempfile
+
+    from copycat_tpu_torch import bench
+    from copycat_tpu_torch.testing import bench_gate
+
+    shutil.rmtree(SCENARIO_DIR, ignore_errors=True)
+    scratch = SCENARIO_DIR / "tmp"
+    scratch.mkdir(parents=True)
+    saved_tempdir = tempfile.tempdir
+    out, paths = {}, []
+    t_phase = time.perf_counter()
+    try:
+        tempfile.tempdir = str(scratch)
+        for name, cut in HOST_SCENARIOS:
+            for knob, value in cut.items():
+                if knob.startswith("COPYCAT_BENCH_"):
+                    say(f"host_scenarios {name}: cut to {knob}={value} (the "
+                        f"reference's default widths otherwise)")
+            zero_counts(ks)
+            t0 = time.perf_counter()
+            with env_set(cut):
+                result, seen = run_host_scenario(bench, name)
+                checked = check_host_scenario(
+                    name, result, bench.METRICS_SNAPSHOTS, seen)
+            wall = time.perf_counter() - t0
+            launched = counts(ks)
+            if any(launched.values()):
+                raise AssertionError(f"{name}: host scenario launched "
+                                     f"{launched}")
+            if os.listdir(scratch):
+                raise AssertionError(f"{name}: left {os.listdir(scratch)}")
+            path = SCENARIO_DIR / f"{name}.json"
+            bench.write_artifact(str(path), result, name, "cuda")
+            paths.append(str(path))
+            extra = (f", catch-up {result['catchup_s_snapshot']} s install"
+                     f"+tail vs {result['catchup_s_replay']} s replay"
+                     if name == "recovery" else "")
+            say(f"host_scenarios {name}: {result['value']} {result['unit']}"
+                f" ({result['metric']}){extra}, {wall:.1f} s wall (host "
+                f"numbers, on the machine of {card}); {checked}")
+            say(f"host_scenarios {name}: " + json.dumps(result))
+            out[name] = dict(result=result, wall_s=wall)
+
+        golden = str(SCENARIO_DIR / "golden.json")
+
+        def gate(*argv) -> tuple[int, str]:
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = bench_gate.main(list(argv))
+            return rc, buf.getvalue()
+
+        rc, text = gate(*paths, "--golden", golden, "--update-golden")
+        if rc != 0:
+            raise AssertionError(f"gate --update-golden exited {rc}: {text}")
+        rc, text = gate(*paths, "--golden", golden)
+        lines = [ln for ln in text.splitlines() if ln.startswith("bench-gate")]
+        if rc != 0 or len(lines) != 4 or not all(": ok " in ln
+                                                 for ln in lines):
+            raise AssertionError(f"gate exited {rc}: {text}")
+        halved = []
+        for path in paths:
+            art = json.loads(pathlib.Path(path).read_text())
+            art["value"] = art["value"] / 2
+            half = path.replace(".json", "_halved.json")
+            pathlib.Path(half).write_text(json.dumps(art))
+            halved.append(half)
+        rc_half, text_half = gate(*halved, "--golden", golden)
+        if rc_half != 1 or text_half.count("REGRESSION") != 4:
+            raise AssertionError(f"gate on halved values exited {rc_half}: "
+                                 f"{text_half}")
+        say("host_scenarios gate: " + " | ".join(lines))
+        say(f"host_scenarios gate: the halved copies exit {rc_half} "
+            f"({text_half.count('REGRESSION')} regressions)")
+    finally:
+        tempfile.tempdir = saved_tempdir
+        shutil.rmtree(SCENARIO_DIR, ignore_errors=True)
+    wall = time.perf_counter() - t_phase
+    say(f"host_scenarios: {wall:.1f} s wall, the gate included")
+    out["wall_s"] = wall
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card", file=sys.stderr)
@@ -2876,6 +3121,8 @@ def main() -> int:
     lap("operator")
     phase_deploy(card)
     lap("deploy")
+    phase_host_scenarios(ks, card)
+    lap("host_scenarios")
     say(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f}s")
     deep_errs = verdicts["deep verdict"]["max_abs_err"]

@@ -68,11 +68,39 @@ scenarios, at the same shapes and in the same units:
   bursts, disk storage; on the widest tier ``kill -9`` of a member and
   of an ingress mid-load; reports committed ops/s per width and the
   ingress tier's latency attribution, and fails on any lost
-  acknowledged write (the ``COPYCAT_BENCH_COMPARTMENT_*`` knobs).
+  acknowledged write (the ``COPYCAT_BENCH_COMPARTMENT_*`` knobs);
+- ``fanout`` — the edge read tier (``run_fanout``): one ``AtomixServer``
+  with CPU machines, 2 writer sessions incrementing 16 zipfian (0.9)
+  counters while a sweep of reader sessions (8, 32, 128) each makes 50
+  SEQUENTIAL gets a burst, 3 bursts; with ``COPYCAT_EDGE_READS`` on,
+  warm reads serve from client-local replicas; reports reads/s at the
+  largest count, the sweep, the readers' ``edge.*`` family and the
+  cache-served read's trace proof (``COPYCAT_BENCH_FANOUT_*``);
+- ``cluster`` — a 3-member ``RaftServer`` cluster over the local
+  transport with 2.0 ms a message leg (``run_cluster``), 4
+  ``RaftClient``s × 1,500 writes a burst, 5 bursts, ``--storage``
+  memory (default), mapped or disk; ``COPYCAT_REPL_PIPELINE`` picks the
+  replication lane; reports committed ops/s with the ``repl.*`` and
+  ``snap.*`` families (``COPYCAT_BENCH_CLUSTER_*``);
+- ``sharded`` — the same cluster hosting ``--groups`` (4) Raft groups
+  with leadership spread (``run_sharded``), 12 clients × 1,200 zipfian
+  (0.9) writes over 1,024 keys a burst at 100 ms a leg, 5 bursts;
+  exactly once read back through the public API; reports committed
+  ops/s, groups led per member, per-group commits and the routing mix
+  (``COPYCAT_BENCH_SHARDED_*``; ``_TRACE=1`` adds a traced wave's
+  cross-member waterfall);
+- ``recovery`` — a fresh member catching up to a loaded cluster
+  (``run_recovery``): 2 of 3 members seed 6,000 writes from 4 clients on
+  ``--storage`` disk (default), then the third joins empty, once with
+  snapshots every 512 entries (install + tail) and once with
+  ``COPYCAT_SNAPSHOTS=0`` (full replay); reports the replay-over-install
+  speedup (``COPYCAT_BENCH_RECOVERY_*``).
 
-The three public-API scenarios report the reference's fields under its
-metric names, less ``vs_baseline`` (a ratio to the reference's TPU north
-star); ``--metrics-json PATH`` writes the result with the scenario's
+The four host-plane scenarios and ``compartment`` run CPU state machines
+on the host and read their sizes from knobs, as the reference's do. They
+and the three public-API scenarios report the reference's fields under
+its metric names, less ``vs_baseline`` (a ratio to the reference's TPU
+north star); ``--metrics-json PATH`` writes the result with the scenario's
 server and client metrics snapshots, series, the bench's host-profiler
 summary and an attribution block (``metrics`` is empty for the engine
 scenarios, which spin no server).
@@ -95,7 +123,8 @@ resource leaves differ after the run (must be 0).
 
     python -m copycat_tpu_torch.bench
         [--scenario counter|map|lock|mixed|election|map_read|host|
-                    host_read|session|spi|readmix|apply|compartment]
+                    host_read|session|spi|readmix|apply|compartment|
+                    fanout|cluster|sharded|recovery]
         [--device cuda|cpu] [--metrics-json PATH]
         [--read-level sequential|atomic|none|linearizable] [--groups N
         --peers P --rounds R --repeats K] [--mode deep|deepscan|bulk|queued]
@@ -388,7 +417,9 @@ SUBMIT_PATTERNS = {
 }
 SCENARIOS = tuple(SUBMIT_PATTERNS) + ("election", "map_read", "host",
                                       "host_read", "session", "spi",
-                                      "readmix", "apply", "compartment")
+                                      "readmix", "apply", "compartment",
+                                      "fanout", "cluster", "sharded",
+                                      "recovery")
 HOST_MODES = ("deep", "deepscan", "bulk", "queued")
 HOST_LOG_SLOTS = 64
 SESSIONS = 16
@@ -1837,6 +1868,895 @@ def run_compartment(groups: int | None = None,
     return asyncio.run(drive())
 
 
+# ---------------------------------------------------------------------------
+# the host-plane scenarios (fanout, cluster, sharded, recovery): CPU state
+# machines over the local transport, as the reference runs them; no device
+# work, whatever --device says
+# ---------------------------------------------------------------------------
+
+def run_fanout(check=None) -> dict:
+    """Edge read tier bench (docs/EDGE_READS.md): few writers, a sweep
+    of reader-session counts, a zipfian key mix — the
+    millions-of-readers shape in miniature. With ``COPYCAT_EDGE_READS``
+    on (default), each reader's first SEQUENTIAL read per counter
+    subscribes and seeds its client-local replica; every later read
+    serves from it, so read throughput scales with the reader count
+    while the cluster sees only the writers' commits and the
+    (reader-count-bounded) seed reads. With the knob off, every read
+    pays the server round-trip and reads/s is pinned to the server's
+    read-window capacity — the A/B this scenario exists to measure.
+
+    The artifact also carries the trace proof: a cache-served read's
+    assembled trace consists solely of client-side spans
+    (``client.edge_serve`` — no ``proxy.hop``, no ``quorum.wait``).
+
+    One ``AtomixServer`` with CPU machines, as the reference's (the
+    client-side replica is the axis, not the cluster), at the
+    ``COPYCAT_BENCH_FANOUT_*`` knobs. Reports the reference's fields
+    except ``vs_baseline``. ``check``, when given, is awaited before
+    teardown with the handles (``server``, ``writer_ctrs``, ``readers``)
+    and what the run counted: ``server_reads`` (per reader count, the
+    server reads of each burst) and ``writes`` (every committed write):
+    the tests' and the smoke's hook, outside the result."""
+    import asyncio
+    import random as _random
+    from types import SimpleNamespace
+
+    from .atomic import DistributedAtomicLong
+    from .io.local import LocalServerRegistry, LocalTransport
+    from .io.transport import Address
+    from .manager.atomix import AtomixClient, AtomixServer
+    from .resource.consistency import Consistency
+    from .utils import knobs, tracing
+    from .utils.tasks import spawn
+
+    edge_on = knobs.get_bool("COPYCAT_EDGE_READS")
+    reader_counts = [int(x) for x in knobs.get_str(
+        "COPYCAT_BENCH_FANOUT_READERS").split(",") if x.strip()]
+    writers = knobs.get_int("COPYCAT_BENCH_FANOUT_WRITERS")
+    n_keys = knobs.get_int("COPYCAT_BENCH_FANOUT_KEYS")
+    reads_per_reader = knobs.get_int("COPYCAT_BENCH_FANOUT_READS")
+    bursts = knobs.get_int("COPYCAT_BENCH_FANOUT_BURSTS")
+    zipf_s = knobs.get_float("COPYCAT_BENCH_FANOUT_ZIPF")
+    rng = _random.Random(17)
+    draw_rank = zipf_sampler(rng, n_keys, zipf_s)
+
+    async def drive() -> dict:
+        registry = LocalServerRegistry()
+        addr = Address("127.0.0.1", 15997)
+        # the coordination-plane shape: CPU machines, one member — the
+        # cluster is deliberately NOT the interesting axis here, the
+        # client-side replica is
+        server = AtomixServer(addr, [addr], LocalTransport(registry),
+                              election_timeout=0.5,
+                              heartbeat_interval=0.1,
+                              session_timeout=60.0)
+        await server.open()
+        writer_clients = [AtomixClient([addr], LocalTransport(registry),
+                                       session_timeout=60.0)
+                          for _ in range(writers)]
+        await asyncio.gather(*(c.open() for c in writer_clients))
+        readers: list[AtomixClient] = []
+        restore_gc = None
+        try:
+            writer_ctrs = [
+                await asyncio.gather(
+                    *(c.get(f"ctr{k}", DistributedAtomicLong)
+                      for k in range(n_keys)))
+                for c in writer_clients]
+            log(f"bench[fanout]: edge reads "
+                f"{'ON' if edge_on else 'OFF'}; {writers} writers, "
+                f"{n_keys} keys, readers sweep {reader_counts}")
+            restore_gc = _bench_gc_tune()
+            sweep: dict[str, dict] = {}
+            reps_largest: list[float] = []
+            write_stop = [False]
+            writes_done = [0]
+            writes_total = [0]
+            server_reads_by_count: dict[int, list] = {}
+
+            async def write_loop(ctrs) -> None:
+                while not write_stop[0]:
+                    await ctrs[draw_rank()].add_and_get(1)
+                    writes_done[0] += 1
+                    writes_total[0] += 1
+
+            async def reader_session() -> None:
+                c = AtomixClient([addr], LocalTransport(registry),
+                                 session_timeout=60.0)
+                await c.open()
+                readers.append(c)
+
+            def server_reads() -> int:
+                snap = server.server.metrics.snapshot()
+                return sum(v for k, v in snap.items()
+                           if isinstance(v, (int, float))
+                           and str(k).startswith("query_reads"))
+
+            for count in reader_counts:
+                while len(readers) < count:
+                    grow = min(64, count - len(readers))
+                    await asyncio.gather(
+                        *(reader_session() for _ in range(grow)))
+                plans = []
+                for c in readers[:count]:
+                    keys = [draw_rank() for _ in range(reads_per_reader)]
+                    cached = {}
+                    for k in set(keys):
+                        if k not in cached:
+                            h = await c.get(f"ctr{k}",
+                                            DistributedAtomicLong)
+                            h.with_consistency(Consistency.SEQUENTIAL)
+                            cached[k] = h
+                    plans.append([cached[k] for k in keys])
+
+                async def read_plan(plan) -> None:
+                    for h in plan:
+                        await h.get()
+
+                burst_reads = count * reads_per_reader
+                reps = []
+                for rep in range(bursts):
+                    write_stop[0] = False
+                    writes_done[0] = 0
+                    wtasks = [spawn(write_loop(cs), name="fanout-writer")
+                              for cs in writer_ctrs]
+                    reads_before = server_reads()
+                    t0 = time.perf_counter()
+                    await asyncio.gather(*(read_plan(p) for p in plans))
+                    dt = time.perf_counter() - t0
+                    write_stop[0] = True
+                    await asyncio.gather(*wtasks)
+                    reads_s = burst_reads / dt
+                    reps.append(reads_s)
+                    served = server_reads() - reads_before
+                    server_reads_by_count.setdefault(count, []).append(served)
+                    log(f"bench[fanout]: {count} readers rep {rep}: "
+                        f"{burst_reads} reads in {dt:.3f}s -> "
+                        f"{reads_s:,.0f} reads/s; "
+                        f"{writes_done[0] / dt:,.0f} committed writes/s; "
+                        f"{served} server reads")
+                    if count == reader_counts[-1]:
+                        last = (dt, writes_done[0], served)
+                sweep[str(count)] = {
+                    "reads_per_sec": round(max(reps), 1),
+                    "reps": [round(r, 1) for r in reps],
+                }
+                if count == reader_counts[-1]:
+                    reps_largest = reps
+                    dt, wd, sr = last
+                    sweep[str(count)]["committed_writes_per_sec"] = \
+                        round(wd / dt, 1)
+                    sweep[str(count)]["server_reads_last_rep"] = sr
+
+            # trace proof: a cache-served read's assembled trace is
+            # client-side only (no proxy.hop / quorum.wait / group.*)
+            trace_proof = None
+            if edge_on:
+                tracing.enable()
+                try:
+                    await plans[0][0].get()  # warmed: serves locally
+                    proof_id = next(
+                        (tid for tid, spans in tracing.TRACER.traces().items()
+                         if any(s.name == "client.edge_serve"
+                                for s in spans)), None)
+                    if proof_id is not None:
+                        spans = tracing.TRACER.spans_for(proof_id)
+                        assembly = tracing.assemble_trace(
+                            proof_id,
+                            {"client": [s.as_dict() for s in spans]})
+                        names = sorted({s.name for s in spans})
+                        trace_proof = {
+                            "spans": names,
+                            "members": assembly.get("members", []),
+                            "client_only": all(
+                                n.startswith("client.") for n in names),
+                            "incomplete": assembly.get("incomplete"),
+                        }
+                finally:
+                    tracing.disable()
+
+            # aggregate the reader clients' edge families for the
+            # artifact (the smoke asserts these keys)
+            agg: dict[str, float] = {}
+            for c in readers:
+                for k, v in c.client.metrics.snapshot().items():
+                    if str(k).startswith("edge.") \
+                            and isinstance(v, (int, float)):
+                        agg[str(k)] = agg.get(str(k), 0) + v
+            METRICS_SNAPSHOTS["server"] = server.server.stats_snapshot()
+            METRICS_SNAPSHOTS["edge_clients"] = agg
+            if check is not None:
+                await check(SimpleNamespace(
+                    server=server, writer_ctrs=writer_ctrs,
+                    readers=readers, server_reads=server_reads_by_count,
+                    writes=writes_total[0]))
+            largest = reader_counts[-1]
+            best = max(reps_largest)
+            return {
+                "metric": (f"fanout_reads_per_sec_{largest}_readers"
+                           + ("" if edge_on else "_server")),
+                "value": round(best, 1),
+                "unit": "reads/sec",
+                "edge_reads": edge_on,
+                "readers": reader_counts,
+                "writers": writers,
+                "keys": n_keys,
+                "sweep": sweep,
+                "trace": trace_proof,
+                **spread(reps_largest),
+            }
+        finally:
+            if restore_gc is not None:
+                restore_gc()
+            write_stop[0] = True
+            for c in readers + writer_clients:
+                try:
+                    await asyncio.wait_for(c.close(), 5)
+                except Exception:  # noqa: BLE001 — teardown best-effort
+                    pass
+            await asyncio.wait_for(server.close(), 10)
+
+    return asyncio.run(drive())
+
+
+def _cluster_machine_types():
+    """Op types + counter machine shared by the cluster-shaped scenarios
+    (``cluster``/``sharded``/``recovery``), from
+    ``testing/counter_machine.py`` — torch-free, the same classes the
+    compartment scenario's member processes host."""
+    from .testing.counter_machine import ClusterAdd, ClusterGet, \
+        CounterMachine
+
+    return ClusterAdd, ClusterGet, CounterMachine
+
+
+def _cluster_storage_factory(level_name: str):
+    """(build_storage(i), cleanup) for a bench cluster: MEMORY needs no
+    directories; MAPPED/DISK get one temp directory per member, removed
+    by ``cleanup()``."""
+    import shutil
+    import tempfile
+
+    from .server.log import Storage, StorageLevel
+
+    level = StorageLevel(level_name)
+    if level is StorageLevel.MEMORY:
+        return (lambda i: Storage(StorageLevel.MEMORY)), (lambda: None)
+    dirs: list[str] = []
+
+    def build(i: int) -> Storage:
+        d = tempfile.mkdtemp(prefix=f"copycat-bench-{level.value}-{i}-")
+        dirs.append(d)
+        return Storage(level, d)
+
+    def cleanup() -> None:
+        for d in dirs:
+            shutil.rmtree(d, ignore_errors=True)
+
+    return build, cleanup
+
+
+def run_cluster(storage: str | None = None, check=None) -> dict:
+    """The replicated-cluster bench: committed ops/sec through a REAL
+    N-member ``RaftServer`` cluster (leader election, pipelined
+    AppendEntries streams, quorum commit) on the local transport, writes
+    through the public ``RaftClient`` API (micro-batched sessioned
+    commands, exactly-once seqs).
+
+    A fixed per-message-leg delay (``COPYCAT_BENCH_CLUSTER_DELAY_MS``,
+    default 2.0 ms — a realistic same-region cross-AZ RTT of ~4 ms) is
+    injected via the transport nemesis so the leader->follower
+    replication stream actually pays wire latency: stop-and-wait
+    replication (``COPYCAT_REPL_PIPELINE=0``) is then capped at
+    window/RTT entries/s per peer, which is exactly what the pipelined
+    plane exists to break.
+
+    ``storage`` (``--storage {memory,mapped,disk}``, else
+    ``COPYCAT_BENCH_CLUSTER_STORAGE``, default memory) runs the same
+    workload on a durable log level, so the durability A/B cost — fsync
+    policy, segment persistence, snapshot cadence — is MEASURED, with
+    the level and the ``snap.*`` family recorded in the
+    ``--metrics-json`` artifact. Reports the reference's fields except
+    ``vs_baseline``. ``check``, when given, is awaited before teardown
+    with ``servers``, ``leader``, ``clients`` and ``values`` (each
+    client's counter, read back through the public API)."""
+    import asyncio
+    from types import SimpleNamespace
+
+    from .client.client import RaftClient
+    from .io.local import LocalServerRegistry, LocalTransport
+    from .io.transport import Address
+    from .server.raft import LEADER, RaftServer
+    from .utils import knobs
+
+    ClusterAdd, ClusterGet, CounterMachine = _cluster_machine_types()
+    storage_level = (storage or knobs.get_str(
+        "COPYCAT_BENCH_CLUSTER_STORAGE")).lower()
+    members = knobs.get_int("COPYCAT_BENCH_CLUSTER_MEMBERS")
+    n_clients = knobs.get_int("COPYCAT_BENCH_CLUSTER_CLIENTS")
+    ops_per_client = knobs.get_int("COPYCAT_BENCH_CLUSTER_OPS")
+    bursts = knobs.get_int("COPYCAT_BENCH_CLUSTER_BURSTS")
+    delay_ms = knobs.get_float("COPYCAT_BENCH_CLUSTER_DELAY_MS")
+    pipelined = knobs.get_bool("COPYCAT_REPL_PIPELINE")
+
+    async def drive() -> dict:
+        registry = LocalServerRegistry()
+        addrs = [Address("local", 17000 + i) for i in range(members)]
+        build_storage, cleanup_storage = _cluster_storage_factory(
+            storage_level)
+        servers = [
+            RaftServer(addr, addrs,
+                       LocalTransport(registry, local_address=addr),
+                       CounterMachine(),
+                       storage=build_storage(i),
+                       election_timeout=0.5, heartbeat_interval=0.1,
+                       session_timeout=120.0)
+            for i, addr in enumerate(addrs)]
+        await asyncio.gather(*(s.open() for s in servers))
+        deadline = time.perf_counter() + 30
+        leader = None
+        while time.perf_counter() < deadline:
+            leader = next((s for s in servers if s.role == LEADER), None)
+            if leader is not None:
+                break
+            await asyncio.sleep(0.02)
+        assert leader is not None, "no leader elected"
+        clients = [RaftClient(addrs, LocalTransport(registry),
+                              session_timeout=120.0)
+                   for _ in range(n_clients)]
+        await asyncio.gather(*(c.open() for c in clients))
+        # inject wire latency only once the cluster + sessions are up:
+        # the measured path is the replicated write plane, not elections
+        nem = registry.attach_nemesis()
+        nem.set_delay(delay_ms / 1e3)
+        log(f"bench[cluster]: {members} members, {n_clients} clients x "
+            f"{ops_per_client} ops/burst, {delay_ms} ms/leg, "
+            f"storage={storage_level} "
+            f"({'pipelined' if pipelined else 'stop-and-wait'} replication, "
+            f"window {leader._repl_window}, depth {leader._repl_depth})")
+        restore_gc = _bench_gc_tune()
+        burst_ops = n_clients * ops_per_client
+        try:
+            async def one(client: RaftClient, key: str) -> None:
+                futs = [client.submit_command_nowait(
+                    ClusterAdd(key=key, delta=1))
+                    for _ in range(ops_per_client)]
+                await asyncio.gather(*futs)
+
+            reps = []
+            for rep in range(bursts):
+                t0 = time.perf_counter()
+                await asyncio.gather(*(one(c, f"k{i}")
+                                       for i, c in enumerate(clients)))
+                dt = time.perf_counter() - t0
+                ops = burst_ops / dt
+                reps.append(ops)
+                log(f"bench[cluster]: rep {rep}: {burst_ops} committed ops "
+                    f"in {dt:.3f}s -> {ops:,.0f} ops/sec")
+            # exactly-once spot check THROUGH the public read API: every
+            # client's counter saw every increment exactly once
+            values = {}
+            for i, c in enumerate(clients):
+                v = await c.submit(ClusterGet(key=f"k{i}"))
+                assert v == bursts * ops_per_client, (i, v)
+                values[f"k{i}"] = v
+            # replicated-state spot check: a quorum actually holds the data
+            await asyncio.sleep(0.3)
+            converged = sum(
+                1 for s in servers
+                if s.state_machine.data.get("k0") == bursts * ops_per_client)
+            assert converged >= len(servers) // 2 + 1, converged
+            METRICS_SNAPSHOTS["server"] = leader.stats_snapshot()
+            METRICS_SNAPSHOTS["client"] = clients[0].metrics.snapshot()
+            capture_series("server", leader)
+            if check is not None:
+                await check(SimpleNamespace(servers=servers, leader=leader,
+                                            clients=clients, values=values))
+            best = max(reps)
+            ack = leader.metrics.histogram("repl.ack_ms")
+            raft_snap = METRICS_SNAPSHOTS["server"]["raft"]
+            return {
+                "metric": (f"cluster_committed_ops_per_sec_{members}_members"
+                           + ("" if storage_level == "memory"
+                              else f"_{storage_level}")
+                           + ("" if pipelined else "_stop_and_wait")),
+                "value": round(best, 1),
+                "unit": "ops/sec",
+                "repl_pipeline": pipelined,
+                "repl_window": leader._repl_window,
+                "repl_depth": leader._repl_depth,
+                "delay_ms_per_leg": delay_ms,
+                "clients": n_clients,
+                "storage_level": storage_level,
+                "fsync": leader.storage.fsync,
+                "snapshots_enabled": bool(
+                    leader._snap_enabled and leader._snapshots is not None),
+                # the durability A/B rides the artifact: every snap.*
+                # series the leader registry holds (zeroes on memory)
+                "snap": {k: v for k, v in raft_snap.items()
+                         if k.startswith("snap.")},
+                "p50_repl_ack_ms": round(ack.percentile(50), 3),
+                "p99_repl_ack_ms": round(ack.percentile(99), 3),
+                **spread(reps),
+            }
+        finally:
+            restore_gc()
+            nem.heal()
+            for c in clients:
+                try:
+                    await asyncio.wait_for(c.close(), 10)
+                except Exception:
+                    pass
+            for s in servers:
+                try:
+                    await asyncio.wait_for(s.close(), 10)
+                except Exception:
+                    pass
+            cleanup_storage()
+
+    return asyncio.run(drive())
+
+
+def run_sharded(groups: int | None = None, check=None) -> dict:
+    """Multi-raft keyspace sharding bench (docs/SHARDING.md): committed
+    ops/sec through a 3-member cluster hosting ``groups`` (``--groups``,
+    else ``COPYCAT_BENCH_SHARDED_GROUPS``) Raft groups, many clients,
+    zipfian keys, writes through the public ``RaftClient`` API.
+
+    The wire shape is CROSS-REGION: a fixed per-leg nemesis delay
+    (``COPYCAT_BENCH_SHARDED_DELAY_MS``, default 100 ms -> 200 ms RTT)
+    makes the bounded replication pipeline the binding constraint — a
+    single ordered log cannot carry more than
+    ``COPYCAT_REPL_MAX_INFLIGHT / RTT`` entries/s no matter how fast the
+    leader's core is, because the in-flight cap exists to bound
+    slow-follower memory (docs/REPLICATION.md). Sharding multiplies
+    that ceiling: G groups = G independent windowed streams, with
+    leadership spread so each member sequences ~G/N of them. The A/B is
+    this scenario at ``--groups 4`` vs ``--groups 1`` (the single-group
+    plane, which ``COPYCAT_MULTI_GROUP=0`` pins bit-identically).
+
+    Reports the reference's fields except ``vs_baseline``. ``check``,
+    when given, is awaited before teardown with ``servers``, ``clients``,
+    ``expected`` (every key's committed increments) and ``values`` (the
+    keys the scenario read back through the public API)."""
+    import asyncio
+    import random as _random
+    from types import SimpleNamespace
+
+    from .client.client import RaftClient
+    from .io.local import LocalServerRegistry, LocalTransport
+    from .io.transport import Address
+    from .server.raft import LEADER, RaftServer
+    from .utils import knobs
+
+    ClusterAdd, ClusterGet, CounterMachine = _cluster_machine_types()
+    groups = max(1, groups or knobs.get_int("COPYCAT_BENCH_SHARDED_GROUPS"))
+    members = knobs.get_int("COPYCAT_BENCH_CLUSTER_MEMBERS")
+    n_clients = knobs.get_int("COPYCAT_BENCH_SHARDED_CLIENTS")
+    ops_per_client = knobs.get_int("COPYCAT_BENCH_SHARDED_OPS")
+    bursts = knobs.get_int("COPYCAT_BENCH_SHARDED_BURSTS")
+    n_keys = knobs.get_int("COPYCAT_BENCH_SHARDED_KEYS")
+    zipf_s = knobs.get_float("COPYCAT_BENCH_SHARDED_ZIPF")
+    delay_ms = knobs.get_float("COPYCAT_BENCH_SHARDED_DELAY_MS")
+
+    # zipfian key draw, deterministic: inverse-CDF over 1/rank^s
+    rng = _random.Random(12)
+    draw_rank = zipf_sampler(rng, n_keys, zipf_s)
+
+    def draw_key() -> str:
+        return f"user:{draw_rank()}"
+
+    async def drive() -> dict:
+        registry = LocalServerRegistry()
+        addrs = [Address("local", 17100 + i) for i in range(members)]
+        servers = [
+            RaftServer(addr, addrs,
+                       LocalTransport(registry, local_address=addr),
+                       (lambda g: CounterMachine()), groups=groups,
+                       election_timeout=0.5, heartbeat_interval=0.1,
+                       session_timeout=120.0)
+            for addr in addrs]
+        await asyncio.gather(*(s.open() for s in servers))
+        deadline = time.perf_counter() + 30
+        while time.perf_counter() < deadline:
+            led = {g.group_id for s in servers for g in s.groups
+                   if g.role == LEADER}
+            if len(led) == groups:
+                break
+            await asyncio.sleep(0.02)
+        led = {g.group_id for s in servers for g in s.groups
+               if g.role == LEADER}
+        assert len(led) == groups, \
+            f"groups without a leader: {set(range(groups)) - led}"
+        clients = [RaftClient(addrs, LocalTransport(registry),
+                              session_timeout=120.0)
+                   for _ in range(n_clients)]
+        await asyncio.gather(*(c.open() for c in clients))
+        # inject wire latency only once the cluster + sessions are up
+        nem = registry.attach_nemesis()
+        nem.set_delay(delay_ms / 1e3)
+        groups_led = {str(s.address): sum(1 for g in s.groups
+                                          if g.role == LEADER)
+                      for s in servers}
+        log(f"bench[sharded]: {members} members x {groups} groups "
+            f"(led: {groups_led}), {n_clients} clients x "
+            f"{ops_per_client} ops/burst, zipf s={zipf_s} over "
+            f"{n_keys} keys, {delay_ms} ms/leg")
+        restore_gc = _bench_gc_tune()
+        burst_ops = n_clients * ops_per_client
+        expected: dict[str, int] = {}
+        try:
+            # streamed micro-batches: each event-loop turn stages one
+            # CHUNK-op batch (the client's turn coalescing), many batches
+            # in flight per session up to CAP outstanding ops — the
+            # pipelined ingress keeps every group's replication window
+            # full for the whole burst. A whole-burst gather (or a
+            # half-wave gate) serializes on BATCH completion, i.e. on the
+            # hottest group's queue, and measures commit latency convoys
+            # instead of stream throughput.
+            chunk = 64
+            cap = max(chunk * 2, 768)
+
+            async def one(client: RaftClient, keys: list) -> None:
+                outstanding = 0
+                wake = asyncio.Event()
+                futs: list = []
+
+                def done(_f) -> None:
+                    nonlocal outstanding
+                    outstanding -= 1
+                    if outstanding <= cap // 2:
+                        wake.set()
+
+                i = 0
+                while i < len(keys):
+                    while outstanding >= cap:
+                        wake.clear()
+                        await wake.wait()
+                    part = keys[i:i + chunk]
+                    i += len(part)
+                    for k in part:
+                        fut = client.submit_command_nowait(
+                            ClusterAdd(key=k, delta=1))
+                        fut.add_done_callback(done)
+                        futs.append(fut)
+                    outstanding += len(part)
+                    await asyncio.sleep(0)  # turn boundary: one batch
+                await asyncio.gather(*futs)
+
+            reps = []
+            for rep in range(bursts):
+                burst_keys = []
+                for _ in range(n_clients):
+                    keys = [draw_key() for _ in range(ops_per_client)]
+                    for k in keys:
+                        expected[k] = expected.get(k, 0) + 1
+                    burst_keys.append(keys)
+                t0 = time.perf_counter()
+                await asyncio.gather(*(one(c, ks) for c, ks
+                                       in zip(clients, burst_keys)))
+                dt = time.perf_counter() - t0
+                ops = burst_ops / dt
+                reps.append(ops)
+                log(f"bench[sharded]: rep {rep}: {burst_ops} committed "
+                    f"ops in {dt:.3f}s -> {ops:,.0f} ops/sec")
+            # causal-tracing wave (COPYCAT_BENCH_SHARDED_TRACE=1): one
+            # traced micro-batch AFTER the timed bursts (the perf
+            # numbers stay untraced) whose keys cover every group in a
+            # single event-loop turn — one CommandBatchRequest fanning
+            # out across group leaders, assembled into the cross-member
+            # waterfall for the --metrics-json artifact.
+            trace_section = None
+            if knobs.get_bool("COPYCAT_BENCH_SHARDED_TRACE"):
+                import zlib
+
+                from .utils import tracing as _tracing
+
+                _tracing.TRACER.clear()
+                _tracing.enable()
+                try:
+                    cover: dict[int, str] = {}
+                    i = 0
+                    while len(cover) < groups:
+                        k = f"trace:{i}"
+                        cover.setdefault(zlib.crc32(k.encode()) % groups, k)
+                        i += 1
+                    tkeys = [cover[g] for g in sorted(cover)]
+                    for k in tkeys:
+                        expected[k] = expected.get(k, 0) + 1
+                    await asyncio.gather(*(
+                        clients[0].submit_command_nowait(
+                            ClusterAdd(key=k, delta=1)) for k in tkeys))
+                finally:
+                    _tracing.disable()
+                best_asm = None
+                for tid, spans in _tracing.TRACER.traces().items():
+                    if not any(s.name == "client.submit" for s in spans):
+                        continue
+                    asm = _tracing.assemble_trace(tid, {"ring": spans})
+                    if best_asm is None or (len(asm["members"])
+                                            > len(best_asm["members"])):
+                        best_asm = asm
+                assert best_asm is not None, "traced wave lost its trace"
+                trace_section = {
+                    "trace_id": best_asm["trace"],
+                    "e2e_ms": best_asm["e2e_ms"],
+                    "critical_path_ms": best_asm["critical_path_ms"],
+                    "incomplete": best_asm["incomplete"],
+                    "members": [m for m in best_asm["members"]
+                                if m != "client"],
+                    "phases": sorted({s["name"]
+                                      for s in best_asm["spans"]}),
+                    "waterfall": _tracing.render_waterfall(best_asm),
+                }
+                log("bench[sharded]: traced waterfall\n"
+                    + trace_section["waterfall"])
+                # the ingress member's snapshot carries the
+                # latency.ingress_queue_ms / proxy_hop_ms phases the
+                # smoke asserts (metrics.server below is member 0, which
+                # may not have been the traced client's ingress)
+                ingress_addr = clients[0]._connected_to
+                ingress = next((s for s in servers
+                                if s.address == ingress_addr), servers[0])
+                METRICS_SNAPSHOTS["ingress"] = ingress.stats_snapshot()
+            # exactly-once spot check THROUGH the public read API:
+            # zipfian increments landed exactly once per key
+            values = {}
+            for k in sorted(expected)[:16]:
+                v = await clients[0].submit(ClusterGet(key=k))
+                assert v == expected[k], (k, v, expected[k])
+                values[k] = v
+            METRICS_SNAPSHOTS["server"] = servers[0].stats_snapshot()
+            METRICS_SNAPSHOTS["client"] = clients[0].metrics.snapshot()
+            capture_series("server", servers[0])
+            if check is not None:
+                await check(SimpleNamespace(servers=servers, clients=clients,
+                                            expected=expected,
+                                            values=values))
+            best = max(reps)
+            # routing mix: commands per owning group, summed over every
+            # member's ingress counters
+            routing_mix = {str(g): 0 for g in range(groups)}
+            if groups > 1:
+                for s in servers:
+                    for g in range(groups):
+                        routing_mix[str(g)] += s._metrics.counter(
+                            "shard.routed", group=str(g)).value
+            per_group_commit = {
+                str(g.group_id): max(s.groups[g.group_id].commit_index
+                                     for s in servers)
+                for g in servers[0].groups}
+            result_extra = ({"trace": trace_section}
+                            if trace_section is not None else {})
+            return {
+                "metric": (f"sharded_committed_ops_per_sec_{members}"
+                           f"_members_{groups}_groups"),
+                "value": round(best, 1),
+                "unit": "ops/sec",
+                **result_extra,
+                "groups": groups,
+                "groups_led": groups_led,
+                "per_group_commit": per_group_commit,
+                "routing_mix": routing_mix,
+                "delay_ms_per_leg": delay_ms,
+                "clients": n_clients,
+                "zipf_s": zipf_s,
+                "keys": n_keys,
+                "repl_max_inflight": servers[0]._repl_max_inflight,
+                **spread(reps),
+            }
+        finally:
+            restore_gc()
+            nem.heal()
+            for c in clients:
+                try:
+                    await asyncio.wait_for(c.close(), 10)
+                except Exception:
+                    pass
+            for s in servers:
+                try:
+                    await asyncio.wait_for(s.close(), 10)
+                except Exception:
+                    pass
+
+    return asyncio.run(drive())
+
+
+def run_recovery(storage: str | None = None, check=None) -> dict:
+    """Crash-recovery bench (docs/DURABILITY.md): a fresh member catching
+    up to a loaded cluster, snapshot-install vs full log replay.
+
+    Two passes over the same workload on a durable storage level
+    (``storage``, ``--storage``, else ``COPYCAT_BENCH_RECOVERY_STORAGE``):
+
+    1. **snapshot** (COPYCAT_SNAPSHOTS=1): the running members snapshot at
+       the configured cadence and prefix-truncate their logs; the joiner
+       catches up via snapshot-install streaming + the retained log tail.
+    2. **replay** (COPYCAT_SNAPSHOTS=0): the replay-only plane — the
+       joiner receives every entry ever committed through the append
+       stream.
+
+    Headline value is the speedup (replay catch-up seconds / snapshot
+    catch-up seconds); the artifact carries both times, the log shapes,
+    and the leader's + joiner's full ``snap.*`` metric families. Reports
+    the reference's fields except ``vs_baseline``. ``check``, when given,
+    is awaited at the end of each pass, before its teardown, with
+    ``snapshots`` (the pass), ``leader``, ``joiner`` and ``per_client``
+    (the increments each client's key took)."""
+    import asyncio
+    import os
+    from types import SimpleNamespace
+
+    from .client.client import RaftClient
+    from .io.local import LocalServerRegistry, LocalTransport
+    from .io.transport import Address
+    from .server.raft import LEADER, RaftServer
+    from .utils import knobs
+
+    ClusterAdd, ClusterGet, CounterMachine = _cluster_machine_types()
+    ops = knobs.get_int("COPYCAT_BENCH_RECOVERY_OPS")
+    storage_level = (storage or knobs.get_str(
+        "COPYCAT_BENCH_RECOVERY_STORAGE")).lower()
+    snap_entries = str(knobs.get_int("COPYCAT_BENCH_RECOVERY_SNAP_ENTRIES"))
+    n_clients = knobs.get_int("COPYCAT_BENCH_RECOVERY_CLIENTS")
+
+    async def one_pass(snapshots_on: bool, port_base: int) -> dict:
+        saved = {k: os.environ.get(k) for k in (
+            "COPYCAT_SNAPSHOTS", "COPYCAT_SNAPSHOT_ENTRIES",
+            "COPYCAT_SNAPSHOT_RETAIN")}
+        os.environ["COPYCAT_SNAPSHOTS"] = "1" if snapshots_on else "0"
+        os.environ["COPYCAT_SNAPSHOT_ENTRIES"] = snap_entries
+        os.environ["COPYCAT_SNAPSHOT_RETAIN"] = "64"
+        build_storage, cleanup_storage = _cluster_storage_factory(
+            storage_level)
+        registry = LocalServerRegistry()
+        addrs = [Address("local", port_base + i) for i in range(3)]
+
+        def build(i: int) -> RaftServer:
+            return RaftServer(
+                addrs[i], addrs,
+                LocalTransport(registry, local_address=addrs[i]),
+                CounterMachine(), storage=build_storage(i),
+                election_timeout=0.5, heartbeat_interval=0.05,
+                session_timeout=120.0)
+
+        # seed: 2 of 3 members carry the workload (still a quorum); the
+        # third joins only at catch-up time
+        servers = [build(0), build(1)]
+        clients: list[RaftClient] = []
+        joiner = None
+        restore_gc = None
+        try:
+            await asyncio.gather(*(s.open() for s in servers))
+            deadline = time.perf_counter() + 30
+            leader = None
+            while time.perf_counter() < deadline:
+                leader = next((s for s in servers if s.role == LEADER), None)
+                if leader is not None:
+                    break
+                await asyncio.sleep(0.02)
+            assert leader is not None, "no leader elected"
+            clients = [RaftClient(addrs[:2], LocalTransport(registry),
+                                  session_timeout=120.0)
+                       for _ in range(n_clients)]
+            await asyncio.gather(*(c.open() for c in clients))
+            per_client = ops // n_clients
+            restore_gc = _bench_gc_tune()
+
+            async def pump(client: RaftClient, key: str) -> None:
+                futs = [client.submit_command_nowait(
+                    ClusterAdd(key=key, delta=1)) for _ in range(per_client)]
+                await asyncio.gather(*futs)
+
+            t0 = time.perf_counter()
+            await asyncio.gather(*(pump(c, f"k{i}")
+                                   for i, c in enumerate(clients)))
+            seed_s = time.perf_counter() - t0
+            log(f"bench[recovery]: seeded {per_client * n_clients} ops in "
+                f"{seed_s:.2f}s ({'snapshots' if snapshots_on else 'replay'}"
+                f" pass); leader log [{leader.log.first_index}, "
+                f"{leader.log.last_index}], snap_index "
+                f"{leader._snap_index}")
+            if snapshots_on:
+                assert leader.log.prefix_index > 0, \
+                    "cadence never truncated the log — raise OPS or " \
+                    "lower COPYCAT_BENCH_RECOVERY_SNAP_ENTRIES"
+
+            # catch-up: the fresh third member boots empty and joins
+            joiner = build(2)
+            t1 = time.perf_counter()
+            await joiner.open()
+            target = leader.commit_index
+            deadline = time.perf_counter() + 120
+            while (joiner.last_applied < target
+                   and time.perf_counter() < deadline):
+                await asyncio.sleep(0.005)
+            catchup_s = time.perf_counter() - t1
+            assert joiner.last_applied >= target, \
+                (joiner.last_applied, target)
+            # correctness: the joiner's machine converged to the truth
+            assert joiner.state_machine.data.get("k0") == per_client
+            log(f"bench[recovery]: joiner caught up {target} entries in "
+                f"{catchup_s:.3f}s "
+                f"({'install+tail' if snapshots_on else 'full replay'})")
+            if check is not None:
+                await check(SimpleNamespace(
+                    snapshots=snapshots_on, leader=leader, joiner=joiner,
+                    per_client=per_client))
+            return {
+                "catchup_s": catchup_s,
+                "seed_s": seed_s,
+                "commit_index": target,
+                "leader_first_index": leader.log.first_index,
+                "leader_prefix_index": leader.log.prefix_index,
+                "installs_sent": leader.metrics.snapshot().get(
+                    "snap.installs_sent", 0),
+                "leader_stats": leader.stats_snapshot(),
+                "joiner_stats": joiner.stats_snapshot(),
+            }
+        finally:
+            if restore_gc is not None:
+                restore_gc()
+            for c in clients:
+                try:
+                    await asyncio.wait_for(c.close(), 10)
+                except Exception:
+                    pass
+            for s in servers + ([joiner] if joiner is not None else []):
+                try:
+                    await asyncio.wait_for(s.close(), 10)
+                except Exception:
+                    pass
+            cleanup_storage()
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+
+    snap_pass = asyncio.run(one_pass(True, 17100))
+    replay_pass = asyncio.run(one_pass(False, 17200))
+    assert snap_pass["installs_sent"] >= 1, snap_pass
+    speedup = replay_pass["catchup_s"] / max(snap_pass["catchup_s"], 1e-9)
+    METRICS_SNAPSHOTS["server"] = snap_pass["leader_stats"]
+    METRICS_SNAPSHOTS["joiner"] = snap_pass["joiner_stats"]
+    return {
+        "metric": f"recovery_catchup_speedup_vs_replay_{storage_level}",
+        "value": round(speedup, 3),
+        "unit": "x",
+        "storage_level": storage_level,
+        "snapshot_entries": int(snap_entries),
+        "seeded_ops": ops,
+        "catchup_s_snapshot": round(snap_pass["catchup_s"], 4),
+        "catchup_s_replay": round(replay_pass["catchup_s"], 4),
+        "commit_index": snap_pass["commit_index"],
+        "leader_first_index_snapshot": snap_pass["leader_first_index"],
+        "installs_sent": snap_pass["installs_sent"],
+        "snap": {k: v
+                 for k, v in snap_pass["leader_stats"]["raft"].items()
+                 if k.startswith("snap.")},
+    }
+
+
+def write_artifact(path: str, result: dict, scenario: str, device,
+                   bench_profiler=None) -> None:
+    """Write the ``--metrics-json`` artifact of a scenario's ``result``
+    to ``path``: the result with the scenario's name, the attribution
+    block, the metrics snapshots and series windows the run left in
+    ``METRICS_SNAPSHOTS`` / ``SERIES_WINDOWS``, and the host profiler's
+    top-frame summary when one ran."""
+    artifact = {**result, "scenario": scenario,
+                "meta": _artifact_meta(device),
+                "metrics": METRICS_SNAPSHOTS,
+                "series": SERIES_WINDOWS}
+    if bench_profiler is not None:
+        artifact["profile"] = bench_profiler.top_summary(top=10)
+    with open(path, "w") as f:
+        json.dump(artifact, f)
+    log(f"bench: metrics snapshot written to {path}")
+
+
 def _run(args) -> dict:
     """The scenario ``args`` names, at its flags (a flag left unset takes
     the scenario's default)."""
@@ -1853,6 +2773,14 @@ def _run(args) -> dict:
                            device=dev)
     if args.scenario == "compartment":
         return run_compartment(args.groups, args.storage)
+    if args.scenario == "fanout":
+        return run_fanout()
+    if args.scenario == "cluster":
+        return run_cluster(args.storage)
+    if args.scenario == "sharded":
+        return run_sharded(args.groups)
+    if args.scenario == "recovery":
+        return run_recovery(args.storage)
     if args.scenario == "apply":
         return run_apply(args.groups or APPLY["groups"],
                          args.sessions or APPLY["sessions"], args.ops,
@@ -1906,10 +2834,14 @@ def main(argv: list[str] | None = None) -> None:
                    help=f"default {GROUPS} ({ELECTION_GROUPS} for election; "
                         f"apply: Raft groups of the server, default "
                         f"{APPLY['groups']}; compartment: groups of every "
-                        f"member, default COPYCAT_BENCH_COMPARTMENT_GROUPS)")
+                        f"member, default COPYCAT_BENCH_COMPARTMENT_GROUPS; "
+                        f"sharded: groups of the cluster, default "
+                        f"COPYCAT_BENCH_SHARDED_GROUPS)")
     p.add_argument("--storage", choices=("memory", "mapped", "disk"),
-                   help="compartment: member log storage level (default "
-                        "COPYCAT_BENCH_COMPARTMENT_STORAGE, disk)")
+                   help="compartment, cluster, recovery: member log storage "
+                        "level (default COPYCAT_BENCH_COMPARTMENT_STORAGE, "
+                        "disk; COPYCAT_BENCH_CLUSTER_STORAGE, memory; "
+                        "COPYCAT_BENCH_RECOVERY_STORAGE, disk)")
     p.add_argument("--peers", type=int, default=PEERS)
     p.add_argument("--rounds", type=int, default=ROUNDS)
     p.add_argument("--repeats", type=int, default=REPEATS)
@@ -1958,15 +2890,8 @@ def main(argv: list[str] | None = None) -> None:
     try:
         result = _run(args)
         if args.metrics_json:
-            artifact = {**result, "scenario": args.scenario,
-                        "meta": _artifact_meta(args.device),
-                        "metrics": METRICS_SNAPSHOTS,
-                        "series": SERIES_WINDOWS}
-            if bench_profiler is not None:
-                artifact["profile"] = bench_profiler.top_summary(top=10)
-            with open(args.metrics_json, "w") as f:
-                json.dump(artifact, f)
-            log(f"bench: metrics snapshot written to {args.metrics_json}")
+            write_artifact(args.metrics_json, result, args.scenario,
+                           args.device, bench_profiler)
     finally:
         profiler.release(bench_profiler)
     print(json.dumps(result))

@@ -13,7 +13,10 @@ injection on the device plane (counterpart of ``copycat_tpu/testing``).
 - :mod:`history` — a recorder that drives ``RaftGroups`` with concurrent
   clients and captures invoke/complete windows for the checker;
 - :mod:`verdict` — the verdict at bench scale (``python -m
-  copycat_tpu_torch.testing.verdict``).
+  copycat_tpu_torch.testing.verdict``);
+- :mod:`bench_gate` — the perf-regression gate over the bench's
+  ``--metrics-json`` artifacts (``python -m
+  copycat_tpu_torch.testing.bench_gate A.json --golden G.json``).
 """
 
 from .history import HistoryRecorder  # noqa: F401

@@ -341,6 +341,73 @@ _knob("COPYCAT_BENCH_COMPARTMENT_NEMESIS", "bool", True,
       "`0` skips the process-level nemesis phase (kill -9 a member + "
       "an ingress proxy mid-load, zero lost acknowledged writes)",
       section="bench")
+_knob("COPYCAT_BENCH_CLUSTER_STORAGE", "str", "memory",
+      choices=("memory", "mapped", "disk"),
+      doc="log storage level for the cluster scenario (the durability "
+          "A/B; the bench's `--storage` sets it)", section="bench")
+_knob("COPYCAT_BENCH_CLUSTER_MEMBERS", "int", 3,
+      "cluster scenario member count", section="bench")
+_knob("COPYCAT_BENCH_CLUSTER_CLIENTS", "int", 4,
+      "concurrent clients in the cluster scenario", section="bench")
+_knob("COPYCAT_BENCH_CLUSTER_OPS", "int", 1500,
+      "ops per client per burst in the cluster scenario", section="bench")
+_knob("COPYCAT_BENCH_CLUSTER_BURSTS", "int", 5,
+      "bursts (best-of) in the cluster scenario", section="bench")
+_knob("COPYCAT_BENCH_CLUSTER_DELAY_MS", "float", 2.0,
+      "nemesis wire latency per leg, ms", section="bench")
+_knob("COPYCAT_BENCH_SHARDED_GROUPS", "int", 4,
+      "Raft groups in the sharded scenario (1 = the single-group A/B "
+      "baseline; the bench's `--groups` sets it)", section="bench")
+_knob("COPYCAT_BENCH_SHARDED_CLIENTS", "int", 12,
+      "concurrent public-API clients in the sharded scenario",
+      section="bench")
+_knob("COPYCAT_BENCH_SHARDED_OPS", "int", 1200,
+      "commands per client per burst in the sharded scenario",
+      section="bench")
+_knob("COPYCAT_BENCH_SHARDED_BURSTS", "int", 5,
+      "measured bursts (best-of) in the sharded scenario",
+      section="bench")
+_knob("COPYCAT_BENCH_SHARDED_KEYS", "int", 1024,
+      "zipfian keyspace size in the sharded scenario", section="bench")
+_knob("COPYCAT_BENCH_SHARDED_ZIPF", "float", 0.9,
+      "zipf skew exponent for the sharded scenario's key draw",
+      section="bench")
+_knob("COPYCAT_BENCH_SHARDED_TRACE", "bool", False,
+      "`1` drives one traced client wave after the timed bursts and "
+      "embeds the assembled cross-member waterfall + `latency.*` phase "
+      "histograms in the `--metrics-json` artifact", section="bench")
+_knob("COPYCAT_BENCH_SHARDED_DELAY_MS", "float", 100.0,
+      "nemesis wire latency per leg, ms (cross-region shape: the "
+      "bounded replication window caps a single ordered log at "
+      "max-inflight/RTT — the cap sharding multiplies)",
+      section="bench")
+_knob("COPYCAT_BENCH_RECOVERY_OPS", "int", 6000,
+      "committed entries before the recovery scenario's catch-up",
+      section="bench")
+_knob("COPYCAT_BENCH_RECOVERY_STORAGE", "str", "disk",
+      choices=("memory", "mapped", "disk"),
+      doc="log storage level for the recovery scenario (the bench's "
+          "`--storage` sets it)", section="bench")
+_knob("COPYCAT_BENCH_RECOVERY_SNAP_ENTRIES", "int", 512,
+      "snapshot cadence the recovery scenario pins", section="bench")
+_knob("COPYCAT_BENCH_RECOVERY_CLIENTS", "int", 4,
+      "concurrent clients in the recovery scenario", section="bench")
+_knob("COPYCAT_BENCH_FANOUT_READERS", "str", "8,32,128",
+      "comma-separated reader-session counts the fanout scenario "
+      "sweeps", section="bench")
+_knob("COPYCAT_BENCH_FANOUT_WRITERS", "int", 2,
+      "writer sessions in the fanout scenario", section="bench")
+_knob("COPYCAT_BENCH_FANOUT_KEYS", "int", 16,
+      "counter resources the fanout scenario reads/writes",
+      section="bench")
+_knob("COPYCAT_BENCH_FANOUT_READS", "int", 50,
+      "reads per reader session per burst in the fanout scenario",
+      section="bench")
+_knob("COPYCAT_BENCH_FANOUT_BURSTS", "int", 3,
+      "measured bursts (best-of) per reader count", section="bench")
+_knob("COPYCAT_BENCH_FANOUT_ZIPF", "float", 0.9,
+      "zipf skew exponent for the fanout scenario's key draw",
+      section="bench")
 
 
 # --- typed getters ---------------------------------------------------------
