@@ -204,7 +204,18 @@ Phases, each of which raises (and so exits non-zero) on failure:
     from the replicas, every key read back once-applied, the joiner at
     the leader's commit index with no failed install; no kernel launched;
     then the port's gate over the four artifacts: recorded into a golden,
-    passed against it, and a copy at half the values refused (exit 1).
+    passed against it, and a copy at half the values refused (exit 1);
+27. entry — the port's graft entry (``copycat_tpu_torch/graft_entry.py``,
+    the reference's ``__graft_entry__.py``): ``fn(*args)``, one consensus
+    round at G=256 × P=3, L=32, S=4, once on the card, with one launch of
+    each fused kernel and none of the tally, equal on every output and
+    state leaf to the same call on the CPU; its wall and CUDA-event time;
+    both fused kernels against their plain versions on the arguments the
+    call gave them, and timed there beside their bounds; a warm call's
+    time and a profiler window of ten calls;
+28. lint — ``cli.main(["lint", "--strict", "--no-cache"])``, the port's
+    copycheck over this checkout's port tree, on the host: exit 0, with
+    its files, findings, baselined and suppressed counts and wall time.
 
 The profile windows' summaries read the window's Chrome trace back
 through ``copycat_tpu_torch/utils/profiling.py``. Each phase prints its
@@ -2058,6 +2069,7 @@ async def server_traffic(cluster, ap, cons, card: str) -> dict:
     from copycat_tpu_torch.manager.atomix import AtomixServer
     from copycat_tpu_torch.io.local import LocalServerRegistry, LocalTransport
     from copycat_tpu_torch.io.transport import Address
+    from copycat_tpu_torch.utils.tasks import spawn
     c1, c2 = cluster.clients
     rng = np.random.default_rng(7)
     keys = {kind: [f"{kind}{i}" for i in range(n)]
@@ -2219,7 +2231,7 @@ async def server_traffic(cluster, ap, cons, card: str) -> dict:
     async with stage("locks"):
         await each(lk.lock() for lk in locks[0])
         tries = await each(lk.try_lock() for lk in locks[1])
-        waiters = [asyncio.ensure_future(lk.lock()) for lk in locks[1]]
+        waiters = [spawn(lk.lock()) for lk in locks[1]]
         await asyncio.sleep(0.5)
         if any(tries) or any(w.done() for w in waiters):
             raise AssertionError("server: a held lock was granted twice")
@@ -3008,6 +3020,99 @@ def phase_host_scenarios(ks: dict, card: str) -> dict:
     return out
 
 
+ENTRY_SHAPE = "G=256 P=3 L=32 S=4 (the graft entry's step)"
+
+
+def phase_entry(cons, convert, kernels, ks: dict, card: str) -> dict:
+    """The port's graft entry (``copycat_tpu_torch/graft_entry.py``):
+    ``fn, args = entry()`` on the card, ``fn(*args)`` once with the kernel
+    counts zeroed just before and read just after (one launch of each
+    fused kernel, none of the tally), its wall and CUDA-event time; every
+    output and state leaf equal to the same call on a CPU copy of
+    ``args``; both fused kernels against their plain versions on the
+    arguments the call gave them, and timed there beside their bounds; a
+    warm call's time, and a profiler window of ten calls."""
+    from copycat_tpu_torch import graft_entry
+
+    fn, args = graft_entry.entry()
+    state, submits, *rest = args
+    cpu_args = (convert.state_to_torch(convert.to_numpy(state), "cpu"),
+                convert.submits_to_torch(convert.to_numpy(submits), "cpu"),
+                *(t.cpu() for t in rest))
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    zero_counts(ks)
+    with recording(cons, STEP_FNS) as seen:
+        t0 = time.perf_counter()
+        start.record()
+        got = fn(*args)
+        end.record()
+        end.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    launched = counts(ks)
+    if launched != {"kth_largest": 0, "admit_submits": 1, "ack_commit": 1}:
+        raise AssertionError(f"entry: kernel launches {launched} in one "
+                             "call; want one of each fused kernel")
+    want = fn(*cpu_args)
+    _same_leaves(want[1], got[1], "entry: the outputs on the card and the "
+                 "CPU")
+    _same_leaves(want[0], got[0], "entry: the state on the card and the CPU")
+    fns, errs = step_fns(kernels, dict(seen), "the graft entry's step")
+    timing = time_fns(fns, {"admit_submits": 1, "ack_commit": 1},
+                      ENTRY_SHAPE, card)
+    call_ms = time_ms(lambda: fn(*args), iters=50, warmup=5)
+    calls = 10
+    profile = profiled(lambda: [fn(*args) for _ in range(calls)],
+                       lambda _: calls, f"{calls} calls of the graft "
+                       f"entry's fn, {ENTRY_SHAPE}, every pool", card)
+    out = dict(launches=launched, errs=errs, timing=timing,
+               first_call_wall_ms=wall_ms,
+               first_call_event_ms=start.elapsed_time(end),
+               warm_call_event_ms=call_ms, profile=profile)
+    say(f"entry: fn(*args) on the card == the CPU call on every output and "
+        f"state leaf, {ENTRY_SHAPE}; kernel launches {launched}; first "
+        f"call {wall_ms:.3f} ms wall, {out['first_call_event_ms']:.3f} ms "
+        f"between CUDA events; warm call {call_ms:.4f} ms (CUDA events over "
+        f"50 calls); on {card}")
+    return out
+
+
+def phase_lint() -> dict:
+    """``cli.main(["lint", "--strict", "--no-cache"])`` on this checkout:
+    the port's copycheck over its own tree, on the host. It must exit 0;
+    its files, findings, baselined and suppressed counts and wall time are
+    printed."""
+    import io
+    import re
+
+    from copycat_tpu_torch import cli
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        try:
+            cli.main(["lint", "--strict", "--no-cache"])
+            code = 0
+        except SystemExit as e:
+            code = e.code
+    wall = time.perf_counter() - t0
+    text = buf.getvalue()
+    if code != 0:
+        raise AssertionError(f"lint: exit {code}\n{text[-4000:]}")
+    status = text.strip().splitlines()[-1]
+    m = re.search(r"(\d+) files, (\d+) finding\(s\), (\d+) baselined, "
+                  r"(\d+) suppressed", status)
+    if m is None or not status.startswith("copycheck: ok"):
+        raise AssertionError(f"lint: unexpected status {status!r}")
+    out = dict(zip(("files", "findings", "baselined", "suppressed"),
+                   map(int, m.groups())), wall_s=wall)
+    say(f"lint: exit 0, {out['files']} files, {out['findings']} findings, "
+        f"{out['baselined']} baselined, {out['suppressed']} suppressed, "
+        f"{wall:.2f} s wall on the card's host")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card", file=sys.stderr)
@@ -3123,6 +3228,10 @@ def main() -> int:
     lap("deploy")
     phase_host_scenarios(ks, card)
     lap("host_scenarios")
+    entry = phase_entry(cons, convert, kernels, ks, card)
+    lap("entry")
+    phase_lint()
+    lap("lint")
     say(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f}s")
     deep_errs = verdicts["deep verdict"]["max_abs_err"]
@@ -3150,17 +3259,21 @@ def main() -> int:
         "launches_readmix": launches["readmix"][name],
         "launches_apply": launches["apply"][name],
         "launches_operator": launches["operator"][name],
+        "launches_entry": entry["launches"][name],
         "max_abs_err": max(errs[name], facade_errs.get(name, 0),
                            deep_errs.get(name, 0), server_errs.get(name, 0),
                            public_errs.get(name, 0),
-                           operator_errs.get(name, 0)),
+                           operator_errs.get(name, 0),
+                           entry["errs"].get(name, 0)),
         "max_abs_err_facades": facade_errs.get(name),
         "max_abs_err_deep_verdict": deep_errs.get(name),
         "max_abs_err_server": server_errs.get(name),
         "max_abs_err_public_api": public_errs.get(name),
         "max_abs_err_operator": operator_errs.get(name),
+        "max_abs_err_entry": entry["errs"].get(name),
         **timing[name],
         "mixed_shape": mixed_timing.get(name),
+        "entry_shape": entry["timing"].get(name),
     } for name, src in sources.items()]
     # the member-masked instantiations of the fused kernels, on the
     # membership path (Config.dynamic_membership)

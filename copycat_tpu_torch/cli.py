@@ -11,11 +11,8 @@ server's stats listener (enable with ``serve --stats-port N`` or
 spawn|status|kill-member`` work as the reference's do. ``profile
 --device <dir>`` summarizes the torch Chrome traces that
 ``utils/profiling.py``'s ``trace`` writes, where the reference reads an
-xprof capture.
-
-The reference's ``lint`` verb (the copycheck static analysis) needs
-``analysis/``, which the port does not carry yet: the parser does not
-know it, so ``lint`` is rejected like any unknown verb (exit 2).
+xprof capture. ``lint`` runs the port's copy of the copycheck static
+analysis (``analysis/``) over the port's own tree; it imports no torch.
 """
 
 from __future__ import annotations
@@ -882,10 +879,16 @@ def main(argv: list[str] | None = None) -> None:
     causal waterfalls; ``doctor`` correlates every member's health +
     black-box + traces into a root-cause report; ``cluster`` runs and
     operates a multi-process deployment (docs/DEPLOYMENT.md);
-    ``serve`` is ``copycat-server``. The reference's ``lint`` is not a
-    verb here (the port has no ``analysis/`` yet): argparse rejects it
-    with exit 2."""
+    ``serve`` is ``copycat-server``; ``lint`` runs the copycheck
+    static-analysis suite over the port's tree (torch-free —
+    docs/ANALYSIS.md)."""
     raw = sys.argv[1:] if argv is None else argv
+    if raw and raw[0] == "lint":
+        # copycheck owns its own argparse surface (docs/ANALYSIS.md);
+        # lazily imported so `lint` never pays for (or requires) torch
+        from .analysis.engine import main as lint_main
+
+        raise SystemExit(lint_main(raw[1:]))
     parser = argparse.ArgumentParser(prog="copycat-tpu")
     sub = parser.add_subparsers(dest="verb", required=True)
 

@@ -286,8 +286,10 @@ class DeviceTelemetryHub:
                           for name in self.PER_GROUP}
         # eager key creation: every hub has the same metric key set
         for name in _COUNTERS:
+            # copycheck: ignore[metric-registry] names from _COUNTERS (each in the device.* catalog)
             self.registry.counter(name)
         for name in _GAUGES:
+            # copycheck: ignore[metric-registry] names from _GAUGES (each in the device.* catalog)
             self.registry.gauge(name)
         for pool in POOL_NAMES:
             self.registry.counter("device.applies", pool=pool)

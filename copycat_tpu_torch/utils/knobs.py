@@ -290,6 +290,9 @@ _knob("COPYCAT_DEVICE_PROBES", "int", 5,
 _knob("COPYCAT_BENCH_DEVICE_TIMEOUT", "float", 120.0,
       "probe timeout for bench runs (a failed probe exits 2; the port "
       "never falls back to the CPU)", section="platform")
+_knob("COPYCAT_ENTRY_DEVICE_TIMEOUT", "float", 120.0,
+      "probe timeout for `python -m copycat_tpu_torch.graft_entry` (a "
+      "failed probe exits 2)", section="platform")
 
 # --- deployment plane ------------------------------------------------------
 _knob("COPYCAT_INGRESS_TIER", "bool", True,

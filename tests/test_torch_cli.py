@@ -6,13 +6,20 @@
   trace bodies, text equal (the clock in a frame's first line pinned).
 - Port copies of the reference's CLI cases (``test_stats_surface.py``,
   ``test_series_surface.py``, ``test_doctor.py``) on the port's own
-  server stack; and the port's own rules: ``lint`` is not a verb, and
-  ``profile --device`` reads a torch Chrome trace.
+  server stack; and the port's own rules: ``lint`` runs the port's
+  copycheck over the port's tree (exit 0 on it, 1 on a copy with a
+  seeded finding, 2 for ``--update-golden``) without importing torch,
+  and ``profile --device`` reads a torch Chrome trace.
 """
 
 import argparse
 import asyncio
 import json
+import os
+import pathlib
+import shutil
+import subprocess
+import sys
 import time
 
 import pytest
@@ -42,6 +49,9 @@ from copycat_tpu_torch.utils.health import (  # noqa: E402
 from helpers import arun, async_test  # noqa: E402
 from torch_port_fixtures import create_cluster  # noqa: E402
 from torch_reference import release_jax_programs  # noqa: E402,F401
+
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -440,19 +450,85 @@ def test_stats_cli_bad_address_is_actionable(capsys):
 # ---------------------------------------------------------------------------
 
 
-def test_lint_is_not_a_verb_of_the_port(capsys):
-    """``analysis/`` is not ported: ``lint`` is an unknown verb (exit 2),
-    the rest of the reference's verbs parse."""
+#: Run in a fresh interpreter: the port's ``lint`` over its own tree, then
+#: which heavy modules it imported (none may be).
+_LINT_PROBE = """
+import json, sys
+from copycat_tpu_torch import cli
+try:
+    cli.main(["lint", "--strict", "--no-cache"])
+except SystemExit as e:
+    code = e.code
+print(json.dumps({"code": code, "imported": sorted(
+    m for m in sys.modules
+    if m.split(".")[0] in ("torch", "jax", "numpy", "copycat_tpu"))}))
+"""
+
+
+@pytest.fixture(scope="module")
+def lint_probe():
+    env = {k: v for k, v in os.environ.items() if k != "JAX_PLATFORMS"}
+    proc = subprocess.run([sys.executable, "-c", _LINT_PROBE], cwd=ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    return proc.stdout.splitlines()
+
+
+def test_lint_strict_exits_0_on_the_ports_tree(lint_probe):
+    assert json.loads(lint_probe[-1])["code"] == 0
+    status = lint_probe[-2]
+    assert status.startswith("copycheck: ok") and " 0 finding(s)" in status
+
+
+def test_lint_imports_no_torch(lint_probe):
+    """``lint`` is pure stdlib and AST: after a whole run, neither torch
+    nor the reference package (nor numpy or jax) is in ``sys.modules``."""
+    assert json.loads(lint_probe[-1])["imported"] == []
+
+
+def test_lint_strict_exits_1_on_a_copy_with_a_seeded_finding(tmp_path):
+    for rel in ("copycat_tpu_torch", "docs", "tests/golden"):
+        shutil.copytree(ROOT / rel, tmp_path / rel,
+                        ignore=shutil.ignore_patterns("__pycache__",
+                                                      "_build"))
+    for rel in ("chip_smoke.py", "ab_quorum_kernels.py"):
+        shutil.copy(ROOT / rel, tmp_path / rel)
+    client = tmp_path / "copycat_tpu_torch" / "client" / "client.py"
+    client.write_text(client.read_text() + (
+        "\n\nasync def _seeded(loop, coro):\n    loop.create_task(coro)\n"))
+    proc = subprocess.run(
+        [sys.executable, "-m", "copycat_tpu_torch.cli", "lint", "--strict",
+         "--no-cache"], cwd=tmp_path, capture_output=True, text=True,
+        timeout=300)
+    assert proc.returncode == 1, proc.stdout + proc.stderr
+    found = [line for line in proc.stdout.splitlines()
+             if line.startswith("copycat_tpu_torch/")]
+    assert len(found) == 1 and "orphan-task" in found[0] \
+        and "[_seeded]" in found[0]
+    assert "copycheck: FAIL" in proc.stdout
+
+
+def test_lint_update_golden_is_refused(capsys):
+    golden = ROOT / "tests" / "golden" / "wire_schema.json"
+    before = golden.read_text()
     with pytest.raises(SystemExit) as e:
-        cli.main(["lint", "--strict"])
+        cli.main(["lint", "--update-golden"])
     assert e.value.code == 2
-    assert "invalid choice: 'lint'" in capsys.readouterr().err
+    assert "belongs to the reference package" in capsys.readouterr().err
+    assert golden.read_text() == before
+
+
+def test_every_other_verb_of_the_reference_parses(capsys):
     for verb in ("stats", "trace", "doctor", "timeline", "top", "profile",
                  "cluster", "serve"):
         with pytest.raises(SystemExit) as e:
             cli.main([verb, "--help"])
         assert e.value.code == 0
-    capsys.readouterr()
+    with pytest.raises(SystemExit) as e:
+        cli.main(["lint", "--help"])
+    assert e.value.code == 0
+    assert "--write-baseline" in capsys.readouterr().out
 
 
 def _torch_trace(path, kernels: dict) -> None:
